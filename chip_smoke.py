@@ -1,33 +1,49 @@
-"""Drive the PyTorch port's main path once on one CUDA card.
+"""Drive the PyTorch port's main paths once on one CUDA card.
 
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``xpic_tpu_torch/csrc`` (into
 ``build/``), holds each against its plain PyTorch twin at the shapes of
-the main path, runs 10 fused ECSIM steps at 32^3 cells x 50 particles
-per cell in float32 (the flagship workload of ``bench.py``), and checks
-the card's result against the CPU twins at 16^3.  Phases:
+the main paths, runs 10 fused ECSIM steps at 32^3 cells x 50 particles
+per cell in float32 (the flagship workload of ``bench.py``), runs the
+config-driven path (``python -m xpic_tpu_torch cfg.json``) at the same
+size, and checks the card's results against the CPU twins at 16^3.
+Phases:
 
 1. device: card name and power limit, the IEEE float32 pins;
-2. build: nvcc for sm_90a;
-3. kernels against twins: the rebin exchange bitwise at AT = 8, 16, 32
-   and 64; the Chebyshev apply to 1e-5 relative; times by CUDA events;
-4. main path: 10 steps through the kernels (every launch count grows;
+2. build: one nvcc per source for sm_90a;
+3. kernels against twins: the rebin exchange bitwise at AT = 8, 16, 32,
+   64 and 128; the Chebyshev apply to 1e-5 relative; the mass apply at
+   K = 80 and 96 to 1e-5 of max |Y|; the slot gather at K = 80 to 2e-6
+   of max |E_p|; times by CUDA events beside each kernel's bound;
+4. fused path: 10 steps through the kernels (every launch count grows;
    the migration loses no particle beyond genuine K overflow);
-5. card against CPU: 2 steps at 16^3 x 50 ppc.
+5. card against CPU: 2 fused steps at 16^3 x 50 ppc;
+6. config-driven path: ``runtime.cli.main`` on a 32^3 x 50 ppc ECSIM
+   config (uniform B0 = 0.2 z, field and density dumps, 5 steps, float32)
+   through all five kernels: finite tables, 0 < KSP < 100, the energy
+   identity within 1e-4 of the total energy, no particle dropped;
+7. the same config at 16^3 x 20 ppc, 2 steps, on the card and on the
+   CPU: tables within 1e-4 (``diagnostics.compare``), equal KSP.
+
+``python3 chip_smoke.py --profile`` adds, after phase 7, two fused steps
+under ``torch.profiler`` and the phase-6 config for 8 steps through
+``xpic_tpu_torch.runtime.step_profile``.
 
 Exits non-zero on any failure, and without CUDA.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel
-with its launches on the main path, its error against its twin and the
-two times.
+with its launches on the fused path and on the config-driven path, its
+error against its twin, its time, its twin's and its bound.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -36,6 +52,24 @@ import torch
 SIDE, PPC, VTH, STEPS = 32, 50, 0.014, 10
 KW = dict(q=-1.0, m=1.0, mpw=1.0 / PPC, maxit=100)
 CHEB_TOL, FIELD_TOL, PARTICLE_TOL = 1e-5, 1e-4, 1e-5
+MASS_TOL, GATHER_TOL, TABLE_TOL, ENERGY_TOL = 1e-5, 2e-6, 1e-4, 1e-4
+CLI_STEPS = 5
+# H100 SXM peaks (vendor datasheet): HBM bytes/s, float32
+# FLOP/s outside the tensor cores.
+HBM_BPS, F32_FLOPS = 3.35e12, 67e12
+KERNELS = {
+    # name: (source, replaces)
+    "cheb_step": ("xpic_tpu_torch/csrc/cheb_step.cu",
+                  "xpic_tpu/ops/pallas_stencil.py:120"),
+    "rebin_extract": ("xpic_tpu_torch/csrc/rebin_extract.cu",
+                      "xpic_tpu/ops/neighbor_rebin.py:279"),
+    "rebin_place": ("xpic_tpu_torch/csrc/rebin_place.cu",
+                    "xpic_tpu/ops/neighbor_rebin.py:348"),
+    "mass_apply": ("xpic_tpu_torch/csrc/mass_apply.cu",
+                   "xpic_tpu/ops/pallas_mass.py:44"),
+    "slot_gather": ("xpic_tpu_torch/csrc/slot_gather.cu",
+                    "xpic_tpu/ops/pallas_ecsim.py:133"),
+}
 
 
 def log(msg: str) -> None:
@@ -69,6 +103,15 @@ def time_ms(fn, reps: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(n_bytes: float, n_flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the HBM rate and the float32 operations over the float32 peak."""
+    t_bytes = n_bytes / HBM_BPS * 1e3
+    t_ops = n_flops / F32_FLOPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def bench_state(geom, ppc, vth, seed=0):
@@ -129,7 +172,7 @@ def main() -> None:
                     nz=SIDE, nt=1)
     report = {}
     for ppc, slots, vth in ((3, 8, 0.05), (20, 40, 0.05), (PPC, 80, VTH),
-                            (100, 160, 0.05)):
+                            (100, 160, 0.05), (130, 200, 0.05)):
         *_, r, p, alive = bench_state(geom, ppc, vth, seed=1)
         _, _, _, sp = state_from_numpy(np.zeros(1), np.zeros(1),
                                        np.zeros(1), r, p, alive,
@@ -159,16 +202,22 @@ def main() -> None:
         check(torch.equal(o_k, o_p) and torch.equal(u_k, u_p)
               and torch.equal(d_k, d_p) and torch.equal(pl_k, pl_p),
               "a single extract/place pass differs from its twin")
+        # Each pass reads its inputs and writes its outputs once: the
+        # [G, 8, AT] buffer in and out, the two [G, 8, A] direction
+        # buffers out (extract) or in (place).
+        pass_bytes = 4 * (2 * buf.numel() + u_k.numel() + d_k.numel())
         report["rebin_extract"] = dict(
             max_abs_err=max(float((o_k - o_p).abs().max()),
                             float((u_k - u_p).abs().max()),
                             float((d_k - d_p).abs().max())),
             ms=time_ms(lambda: NR.rebin_extract(buf, geom, 0)),
-            plain_ms=time_ms(lambda: NR.extract_plain(buf, geom, 0)))
+            plain_ms=time_ms(lambda: NR.extract_plain(buf, geom, 0)),
+            **bound(pass_bytes, 0))
         report["rebin_place"] = dict(
             max_abs_err=float((pl_k - pl_p).abs().max()),
             ms=time_ms(lambda: NR.rebin_place(o_k, u_k, d_k, geom, 0)),
-            plain_ms=time_ms(lambda: NR.place_plain(o_k, u_k, d_k, geom, 0)))
+            plain_ms=time_ms(lambda: NR.place_plain(o_k, u_k, d_k, geom, 0)),
+            **bound(pass_bytes, 0))
         whole_ms = time_ms(lambda: NR.rebin_neighbor(st, geom))
         whole_plain = time_ms(lambda: NR.rebin_neighbor(st, geom,
                                                         plain=True))
@@ -189,16 +238,20 @@ def main() -> None:
     torch.cuda.synchronize()
     cheb_err = float((x_k - x_p).abs().max())
     rel = cheb_err / float(x_p.abs().max())
+    # One apply reads rhs and writes x once; each of its 12 iterations
+    # does ~40 float32 operations per field element (cheb_step.cu).
     report["cheb_step"] = dict(
         max_abs_err=cheb_err,
         ms=time_ms(lambda: cheb_matM_inv(rhs, shift, **cheb)),
-        plain_ms=time_ms(lambda: cheb_matM_inv_plain(rhs, shift, **cheb)))
+        plain_ms=time_ms(lambda: cheb_matM_inv_plain(rhs, shift, **cheb)),
+        **bound(8 * rhs.numel(), 12 * 40 * rhs.numel()))
     log(f"[3 kernels] cheb degree 12 on {tuple(rhs.shape)}: max|d|/max|x| "
         f"= {rel:.3e} (tol {CHEB_TOL}; nvcc contracts multiply-adds into "
         f"FMAs, which round once) | apply {report['cheb_step']['ms']:.4f} "
         f"ms vs twin {report['cheb_step']['plain_ms']:.4f} ms | {card}")
     check(np.isfinite(rel) and rel <= CHEB_TOL,
           f"cheb_step differs from its twin by {rel:.3e}")
+    report.update(slot_kernels(geom, dev, card))
 
     # -- 4. the main path --------------------------------------------------
     E, B, B0, r, p, alive = bench_state(geom, PPC, VTH)
@@ -275,18 +328,49 @@ def main() -> None:
           "card particles differ from CPU")
     check(itg.tolist() == itc.tolist(), "KSP iterations differ")
 
-    sources = {
-        "cheb_step": ("xpic_tpu_torch/csrc/cheb_step.cu",
-                      "xpic_tpu/ops/pallas_stencil.py:120"),
-        "rebin_extract": ("xpic_tpu_torch/csrc/rebin_extract.cu",
-                          "xpic_tpu/ops/neighbor_rebin.py:279"),
-        "rebin_place": ("xpic_tpu_torch/csrc/rebin_place.cu",
-                        "xpic_tpu/ops/neighbor_rebin.py:348"),
-    }
+    # -- 6. the config-driven path on the card -----------------------------
+    os.environ["XPIC_X64"] = "0"
+    with tempfile.TemporaryDirectory(prefix="xpic_smoke_") as work:
+        out, sim, step_times, cli_launches = run_cli(
+            work, SIDE, PPC, CLI_STEPS, "cuda:0")
+        check_cli_run(out, sim, cli_launches, name, card, step_times)
+
+    # -- 7. the config-driven path, card against CPU -------------------------
+    with tempfile.TemporaryDirectory(prefix="xpic_smoke_") as work:
+        runs = {}
+        for device in ("cuda:0", "cpu"):
+            runs[device] = run_cli(os.path.join(work, device.split(":")[0]),
+                                   16, 20, 2, device)
+        (out_g, sim_g, _, lg), (out_c, sim_c, _, lc) = (runs["cuda:0"],
+                                                        runs["cpu"])
+        from xpic_tpu_torch.diagnostics.compare import table_errors
+
+        worst = {}
+        for table in ("energy.txt", "energy_conservation.txt",
+                      "momentum_conservation.txt"):
+            errs = table_errors(table, out_c, out_g, n_cells=16 ** 3)
+            worst[table] = max(errs.items(), key=lambda kv: kv[1])
+            log(f"    {table}: {errs}")
+        log(f"[7 card vs cpu, cli] 16^3 x 20 ppc f32, 2 steps: worst column "
+            f"per table {worst} (tol {TABLE_TOL}); KSP card "
+            f"{sim_g.ksp_history} cpu {sim_c.ksp_history}")
+        check(all(v > 0 for v in lg.values()) and not any(lc.values()),
+              f"routing: card launches {lg}, CPU launches {lc}")
+        check(all(e <= TABLE_TOL for _, e in worst.values()),
+              "card tables differ from the CPU's")
+        check(sim_g.ksp_history == sim_c.ksp_history,
+              "KSP iterations differ between card and CPU")
+
+    if "--profile" in sys.argv[1:]:
+        profile_paths(name, card, dev, lambda: ecsim_multi_step(
+            E, B, B0, sp, geom, slots, n_steps=2, **KW))
+
     rows = []
-    for kname, (src, repl) in sources.items():
+    for kname, (src, repl) in KERNELS.items():
         row = dict(name=kname, route="cuda", source=src, replaces=repl,
-                   launches=launches[kname], **report[kname])
+                   launches=launches[kname],
+                   launches_cli=cli_launches[kname], library_ms=None,
+                   **report[kname])
         if kname == "rebin_place":
             row["also_replaces"] = ["xpic_tpu/ops/neighbor_rebin.py:496",
                                     "xpic_tpu/ops/neighbor_rebin.py:525"]
@@ -296,6 +380,225 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def slot_kernels(geom, dev, card):
+    """Phase 3 for the mass apply (K = 80, the fused path, and 96, the
+    config-driven path's K at 50 ppc) and the slot gather (K = 80), on the
+    drifted and migrated 32^3 x 50 ppc state with B at the slots ~0.2."""
+    from xpic_tpu_torch.convert import state_from_numpy
+    from xpic_tpu_torch.ops.binning import bin_state, drift_state, rebin
+    from xpic_tpu_torch.ops.ecsim_blocks import gather_slots
+    from xpic_tpu_torch.ops.ecsim_kernel import (
+        ecsim_gather,
+        ecsim_gather_plain,
+    )
+    from xpic_tpu_torch.ops.gather_scatter import (
+        B_STAGGER,
+        cell_t,
+        gather_vector,
+    )
+    from xpic_tpu_torch.ops.mass_free import mass_operands
+    from xpic_tpu_torch.ops.mass_kernel import (
+        mass_apply_slots,
+        mass_apply_slots_plain,
+    )
+
+    rng = np.random.default_rng(7)
+    shape = (3,) + geom.shape
+    Bf = np.zeros(shape)
+    Bf[2] = 0.2
+    Bf += 0.05 * rng.standard_normal(shape)
+    x = rng.standard_normal(shape)
+    report = {}
+    for slots in (80, 96):
+        *_, r, p, alive = bench_state(geom, PPC, VTH, seed=1)
+        Bt, xt, _, sp = state_from_numpy(Bf, x, np.zeros(1), r, p, alive,
+                                         device=dev, dtype=torch.float32)
+        st = rebin(drift_state(bin_state(sp, geom, slots), geom), geom)
+        t = cell_t(geom, st.r)
+        B_p = gather_vector(Bt, t, st.valid, geom, order=1, width=3,
+                            anchor=-1, stagger=B_STAGGER)
+        packed = mass_operands(t, B_p, st.valid, dt=geom.dt, **{
+            k: KW[k] for k in ("q", "m", "mpw")}).packed
+        xg = gather_slots(xt, geom)
+        Y_k = mass_apply_slots(xg, packed)
+        Y_p = mass_apply_slots_plain(xg, packed)
+        torch.cuda.synchronize()
+        err = float((Y_k - Y_p).abs().max())
+        rel = err / float(Y_p.abs().max())
+        n_valid = int(st.valid.sum())
+        G = geom.n_cells
+        # Read: 7 operand channels (the 8th is zero and never read) and
+        # xg; written: Y.  ~140 float32 operations per live slot.
+        row = dict(max_abs_err=err,
+                   ms=time_ms(lambda: mass_apply_slots(xg, packed)),
+                   plain_ms=time_ms(lambda: mass_apply_slots_plain(xg,
+                                                                   packed)),
+                   **bound(4 * G * (7 * slots + 2 * 36), 140 * n_valid))
+        log(f"[3 kernels] mass_apply K={slots} |B_p| max "
+            f"{float(B_p.norm(dim=-1).max()):.3f}: max|d|/max|Y| = "
+            f"{rel:.3e} (tol {MASS_TOL}) | {row['ms']:.4f} ms vs twin "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}) | {card}")
+        check(np.isfinite(rel) and rel <= MASS_TOL,
+              f"mass_apply differs from its twin by {rel:.3e} at K={slots}")
+        if slots != 80:
+            continue
+        report["mass_apply"] = row
+        Fg = gather_slots(xt, geom)
+        E_k = ecsim_gather(t, Fg)
+        E_p = ecsim_gather_plain(t, Fg)
+        torch.cuda.synchronize()
+        err = float((E_k - E_p).abs().max())
+        rel = err / float(E_p.abs().max())
+        # Read t and Fg, write E_p; ~75 float32 operations per live slot.
+        report["slot_gather"] = row = dict(
+            max_abs_err=err, ms=time_ms(lambda: ecsim_gather(t, Fg)),
+            plain_ms=time_ms(lambda: ecsim_gather_plain(t, Fg)),
+            **bound(4 * (2 * t.numel() + Fg.numel()), 75 * n_valid))
+        log(f"[3 kernels] slot_gather K={slots}: max|d|/max|E_p| = "
+            f"{rel:.3e} (tol {GATHER_TOL}) | {row['ms']:.4f} ms vs twin "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}) | {card}")
+        check(np.isfinite(rel) and rel <= GATHER_TOL,
+              f"slot_gather differs from its twin by {rel:.3e}")
+    return report
+
+
+def cli_config(out_dir, side, ppc, steps):
+    """The config-driven run: ``side``^3 cells of 0.5, dt 1.5, periodic,
+    one electron species at ``ppc`` and T = 0.1 keV (the bench's
+    v_th = 0.014 c), a uniform B0 = 0.2 along z, E, B and the density
+    dumped every step."""
+    L = side * 0.5
+    return {
+        "Simulation": "ecsim",
+        "OutputDirectory": out_dir,
+        "Geometry": {"x": L, "y": L, "z": L, "t": steps * 1.5,
+                     "dx": 0.5, "dy": 0.5, "dz": 0.5, "dt": 1.5,
+                     "diagnose_period": 1.5},
+        "Particles": [{"sort_name": "electrons", "Np": ppc, "n": 1.0,
+                       "q": -1.0, "m": 1.0, "T": 0.1}],
+        "Presets": [
+            {"command": "SetParticles", "particles": "electrons",
+             "coordinate": {"name": "CoordinateInBox"},
+             "momentum": {"name": "MaxwellianMomentum"}},
+            {"command": "SetMagneticField",
+             "field": {"name": "SetUniformField", "value": [0.0, 0.0, 0.2]}},
+        ],
+        "Diagnostics": [
+            {"diagnostic": "FieldView", "field": "E"},
+            {"diagnostic": "FieldView", "field": "B"},
+            {"diagnostic": "DistributionMoment", "particles": "electrons",
+             "moment": "density"},
+        ],
+    }
+
+
+def run_cli(work, side, ppc, steps, device):
+    """``runtime.cli.main`` on :func:`cli_config` in ``work``.  Returns
+    the output directory, the simulation it built, each step's time in
+    ms (closed by a device synchronisation) and the kernel launches of
+    the run (counts set to 0 just before it)."""
+    from xpic_tpu_torch import kernels
+    from xpic_tpu_torch import schemes
+    from xpic_tpu_torch.commands import particles_load
+    from xpic_tpu_torch.runtime import cli
+
+    os.makedirs(work, exist_ok=True)
+    out = os.path.join(work, "out")
+    cfg = os.path.join(work, "cfg.json")
+    with open(cfg, "w") as fh:
+        json.dump(cli_config(out, side, ppc, steps), fh)
+    built, step_ms = [], []
+    build = schemes.build_simulation
+    sync = (torch.cuda.synchronize if device.startswith("cuda")
+            else lambda: None)
+
+    def timed_build(*args, **kwargs):
+        sim = build(*args, **kwargs)
+        step = sim.timestep_implementation
+
+        def timed_step(t):
+            sync()
+            t0 = time.perf_counter()
+            step(t)
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+
+        sim.timestep_implementation = timed_step
+        built.append(sim)
+        return sim
+
+    schemes.build_simulation = timed_build
+    # Every run loads the particles of the loader's import-time stream.
+    particles_load.seed(5489)
+    try:
+        kernels.reset_counts()
+        rc = cli.main([cfg, "--quiet", "--device", device])
+        sync()
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        schemes.build_simulation = build
+    check(rc == 0, f"cli.main returned {rc}")
+    return out, built[0], step_ms, launches
+
+
+def check_cli_run(out, sim, launches, name, card, step_ms):
+    from xpic_tpu_torch.diagnostics.compare import TABLES, read_table
+
+    tables = {t: read_table(os.path.join(out, "temporal", t))
+              for t in TABLES}
+    h_en, en = tables["energy.txt"]
+    h_ec, ec = tables["energy_conservation.txt"]
+    n_en = (len(h_en) - 1) // 2
+    total = en[:, 1:1 + n_en].sum(axis=1)
+    closure = np.abs(ec[:, h_ec.index("dE+dB+dK")]) / total
+    hist = sim.ksp_history
+    dumps = {d: len(os.listdir(os.path.join(out, d)))
+             for d in ("E", "B", os.path.join("electrons", "density"))}
+    sp = sim.species[0]
+    log(f"[6 cli path] python -m xpic_tpu_torch cfg.json: {SIDE}^3 x {PPC} "
+        f"ppc f32, {CLI_STEPS} steps, K={sp.slots}, {sp.count()} particles: "
+        f"ms/step median {statistics.median(step_ms):.3f} (per step "
+        f"{[round(v, 3) for v in step_ms]}), KSP {hist}, "
+        f"max |dE+dB+dK|/(wE+wB+wK) = {closure.max():.3e} (tol "
+        f"{ENERGY_TOL}), dumps {dumps}, launches {launches} | {name} | "
+        f"{card}")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel of the config-driven path never launched: {launches}")
+    check(all(np.isfinite(rows).all() and rows.shape[0] == CLI_STEPS + 1
+              for _, rows in tables.values()), "a table row is not finite")
+    check(len(hist) == CLI_STEPS and all(0 < it < KW["maxit"]
+                                         for it in hist),
+          f"KSP iterations {hist}")
+    check(closure.max() <= ENERGY_TOL, "the ECSIM energy identity fails")
+    check(all(v == CLI_STEPS + 1 for v in dumps.values()),
+          f"dumps {dumps}")
+
+
+def profile_paths(name, card, dev, fused_run):
+    """``--profile``: two fused steps (phase 4's state) under
+    ``torch.profiler``, and the phase-6 config for 8 steps through
+    ``runtime.step_profile`` (per-phase and per-diagnostic times, and a
+    2-step ``torch.profiler`` window)."""
+    from xpic_tpu_torch.config import Config
+    from xpic_tpu_torch.runtime.step_profile import device_window, profile_run
+    from xpic_tpu_torch.schemes import build_simulation
+
+    fused = device_window([fused_run], dev)
+    log(f"[profile] fused path {SIDE}^3 x {PPC} ppc f32, 2 steps | {name} "
+        f"| {card}")
+    log(f"[profile] {json.dumps(fused)}")
+
+    with tempfile.TemporaryDirectory(prefix="xpic_smoke_") as work:
+        doc = cli_config(os.path.join(work, "out"), SIDE, PPC, 8)
+        sim = build_simulation(Config.from_json(doc), device="cuda:0")
+        prof = profile_run(sim)
+    log(f"[profile] {SIDE}^3 x {PPC} ppc f32, config-driven path | {name} "
+        f"| {card}")
+    log(f"[profile] {json.dumps(prof)}")
 
 
 def replay_loads(E, B, B0, sp, geom, slots):

@@ -2,8 +2,12 @@
 card (marked ``gpu``; skipped where there is no CUDA device).
 
 The rebin kernels must match their twins bit for bit through the whole
-exchange at AT = 16 and AT = 32; the Chebyshev kernel to 1e-5 relative
-(nvcc contracts multiply-adds into FMAs, which round once).
+exchange at AT = 16, 32 and 128; the Chebyshev kernel to 1e-5 relative
+(nvcc contracts multiply-adds into FMAs, which round once); the mass
+apply to 1e-5 of max |Y| (its K-sums run in another order than the
+twin's) and the slot gather to 2e-6 of max |E_p|.
+
+    python -m pytest --noconftest -o addopts="" tests/test_torch_kernels.py -q
 """
 
 import numpy as np
@@ -15,6 +19,11 @@ from xpic_tpu_torch.config import Geometry
 from xpic_tpu_torch.convert import state_from_numpy
 from xpic_tpu_torch.ops import neighbor_rebin as NR
 from xpic_tpu_torch.ops.binning import bin_state, drift_state
+from xpic_tpu_torch.ops.ecsim_kernel import ecsim_gather, ecsim_gather_plain
+from xpic_tpu_torch.ops.mass_kernel import (
+    mass_apply_slots,
+    mass_apply_slots_plain,
+)
 from xpic_tpu_torch.ops.stencil_kernel import (
     cheb_matM_inv,
     cheb_matM_inv_plain,
@@ -42,8 +51,8 @@ def _state(geom, ppc, vth, slots, dev):
     return drift_state(bin_state(sp, geom, slots), geom)
 
 
-@pytest.mark.parametrize("ppc,slots", [(20, 40), (50, 80)],
-                         ids=["AT16", "AT32"])
+@pytest.mark.parametrize("ppc,slots", [(20, 40), (50, 80), (130, 200)],
+                         ids=["AT16", "AT32", "AT128"])
 @pytest.mark.parametrize("shape", [(32, 32, 32), (8, 6, 4)],
                          ids=["32cube", "8x6x4"])
 def test_rebin_kernels_match_twins(dev, ppc, slots, shape):
@@ -96,3 +105,67 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     buf = torch.zeros((geom.n_cells, 8, 12), device=dev)
     with pytest.raises(ValueError):
         NR.rebin_extract(buf, geom, 0)
+    G = geom.n_cells
+    xg = torch.zeros((G, 3, 12), device=dev)
+    packed = torch.zeros((G, 8, 16), device=dev)
+    with pytest.raises(TypeError):
+        mass_apply_slots(xg.double(), packed.double())
+    with pytest.raises(ValueError):
+        mass_apply_slots(xg[:, :, :8].contiguous(), packed)
+    with pytest.raises(ValueError):
+        mass_apply_slots(xg, packed[:, :7].contiguous())
+    with pytest.raises(ValueError):
+        mass_apply_slots(xg, packed.transpose(0, 2).contiguous()
+                         .transpose(0, 2))
+    t = torch.zeros((G, 16, 3), device=dev)
+    with pytest.raises(TypeError):
+        ecsim_gather(t.double(), xg)
+    with pytest.raises(ValueError):
+        ecsim_gather(t, xg[:G // 2])
+    with pytest.raises(ValueError):
+        ecsim_gather(t[:, :, :2].contiguous(), xg)
+
+
+def _slot_inputs(G, K, dev, seed):
+    """Packed mass operands [G, 8, K] of a species with |B| ~ 0.2 and
+    empty slots (coef 0, t at the cell centre), slot values xg, and the
+    positions t [G, K, 3]."""
+    rng = np.random.default_rng(seed)
+    valid = rng.random((G, K)) < 0.6
+    t = np.where(valid[..., None], rng.random((G, K, 3)), 0.5)
+    b = -0.75 * 0.2 * rng.standard_normal((G, K, 3))
+    coef = np.where(valid, 0.0225 / (1.0 + np.sum(b * b, axis=-1)), 0.0)
+    packed = np.concatenate(
+        [np.moveaxis(t, -1, 1), np.moveaxis(b, -1, 1), coef[:, None, :],
+         np.zeros((G, 1, K))], axis=1)
+    xg = rng.standard_normal((G, 3, 12))
+
+    def f32(a):  # concatenate keeps the moved axes' strides
+        return torch.tensor(np.ascontiguousarray(a), dtype=torch.float32,
+                            device=dev)
+
+    return f32(packed), f32(xg), f32(t)
+
+
+@pytest.mark.parametrize("K", [80, 96, 200])
+def test_mass_apply_kernel_matches_twin(dev, K):
+    packed, xg, _ = _slot_inputs(16 ** 3, K, dev, seed=K)
+    before = kernels.LAUNCHES["mass_apply"]
+    got = mass_apply_slots(xg, packed)
+    ref = mass_apply_slots_plain(xg, packed)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mass_apply"] == before + 1
+    assert got.shape == ref.shape == (16 ** 3, 3, 12)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("K", [80, 96])
+def test_slot_gather_kernel_matches_twin(dev, K):
+    _, xg, t = _slot_inputs(16 ** 3, K, dev, seed=K + 1)
+    before = kernels.LAUNCHES["slot_gather"]
+    got = ecsim_gather(t, xg)
+    ref = ecsim_gather_plain(t, xg)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["slot_gather"] == before + 1
+    assert got.shape == ref.shape == (16 ** 3, K, 3)
+    assert float((got - ref).abs().max()) <= 2e-6 * float(ref.abs().max())

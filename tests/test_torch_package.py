@@ -79,6 +79,21 @@ def test_load_without_nvcc_raises(monkeypatch, tmp_path):
         kernels.load()
 
 
+def test_failed_compile_raises_with_the_compiler_output(monkeypatch,
+                                                        tmp_path):
+    """Each source gets its own nvcc; one that fails stops the build."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text("#!/bin/sh\necho \"error in $*\" >&2\nexit 3\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(kernels, "_lib", None)
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match=r"nvcc failed \(exit 3\)"):
+        kernels.load()
+    assert "error in" in kernels.BUILD_LOG
+    assert kernels.BUILD_LOG.count("error in") == len(kernels._sources()[0])
+
+
 def test_cpu_tensors_take_the_twins_and_count_nothing():
     kernels.reset_counts()
     geom = Geometry(dx=0.5, dy=0.5, dz=0.5, dt=1.5, nx=4, ny=4, nz=4, nt=1)

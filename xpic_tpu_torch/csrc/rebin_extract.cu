@@ -20,10 +20,11 @@
 // Bound on the H100: memory, ~2 x 8 x AT x 4 bytes per cell read and
 // written once (~8 MB a pass at 32^3 with AT = 32), and launch latency
 // at that size.  Design: one warp per cell.  AT = 32 is exactly one
-// warp; smaller AT masks the upper lanes, AT = 64 runs two 32-column
-// chunks with the ranks carried from the first.  A class's stable rank
-// is __popc(ballot & lanemask_lt) plus the carry, which replaces the
-// butterfly compaction; every store lands on a distinct lane.
+// warp; smaller AT masks the upper lanes, AT = 64, 128 and 256 (K up to
+// 512) run AT / 32 chunks of 32 columns with the ranks carried from the
+// chunks before.  A class's stable rank is __popc(ballot & lanemask_lt)
+// plus the carry, which replaces the butterfly compaction; every store
+// lands on a distinct lane.
 #include "common.cuh"
 
 namespace {

@@ -20,7 +20,7 @@
 // Bound on the H100: memory (~8 x AT x 4 bytes per cell read and written
 // once, plus 2 x 8 x A x 4 bytes of neighbor buffers) and launch latency.
 // Design: one warp per destination cell; the two counts are warp sums
-// (__reduce_add_sync), AT > 32 runs in 32-column chunks.
+// (__reduce_add_sync), AT > 32 (up to 256) runs in 32-column chunks.
 #include "common.cuh"
 
 namespace {

@@ -1,9 +1,10 @@
 """Build, bind and count the port's hand-written Hopper kernels.
 
 The CUDA sources under ``xpic_tpu_torch/csrc`` have a plain C interface.
-:func:`load` compiles them with ``nvcc`` for ``sm_90a`` into one shared
+:func:`load` compiles them with ``nvcc`` for ``sm_90a``, one ``nvcc``
+per source, all started together, and links the objects into one shared
 library under ``build/xpic_tpu_torch/`` at the repository root (rebuilt
-when a hash of the sources changes) and binds it with ``ctypes``.  A
+when a hash of the sources changes), then binds it with ``ctypes``.  A
 missing ``nvcc`` or a failed compile raises ``RuntimeError`` with the
 compiler's output: there is no fallback.
 
@@ -29,7 +30,7 @@ LIB_NAME = "libxpic_kernels.so"
 # Where the CUDA toolkit puts nvcc when it is not on PATH.
 TOOLKIT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types (pointers and the stream as void*).
@@ -42,6 +43,10 @@ SIGNATURES = {
     "rebin_extract": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # P, up, dn, out, G, AT, A, axis, nx, ny, nz, stream
     "rebin_place": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # xg, packed, Y, G, K, stream
+    "mass_apply": (_P, _P, _P, _I, _I, _P),
+    # t, Fg, out, G, K, stream
+    "slot_gather": (_P, _P, _P, _I, _I, _P),
 }
 
 LAUNCHES = {name: 0 for name in SIGNATURES}
@@ -79,23 +84,34 @@ def _find_nvcc() -> str:
     return nvcc
 
 
+def _run_all(cmds) -> None:
+    """Run the commands in parallel, append their output to BUILD_LOG,
+    and raise on the first that failed."""
+    global BUILD_LOG
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    BUILD_LOG += "".join(outs)
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {p.returncode}): {' '.join(cmd)}\n{out}")
+
+
 def _build(lib_path: Path, stamp: Path, digest: str) -> None:
     global BUILD_LOG
+    BUILD_LOG = ""
     nvcc = _find_nvcc()
     cus, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-o", tmp,
-           *(str(p) for p in cus)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{BUILD_LOG}")
-    os.replace(tmp, lib_path)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [os.path.join(work, p.stem + ".o") for p in cus]
+        _run_all([[nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-c", "-o", obj,
+                   str(cu)] for cu, obj in zip(cus, objs)])
+        tmp = os.path.join(work, LIB_NAME)
+        _run_all([[nvcc, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, lib_path)
     stamp.write_text(digest)
 
 
@@ -117,6 +133,18 @@ def load():
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
+
+
+def check_operand(name: str, T, shape) -> None:
+    """Raise unless ``T`` is what a kernel takes: float32 (TypeError),
+    contiguous and of ``shape`` (ValueError)."""
+    import torch
+
+    if T.dtype != torch.float32:
+        raise TypeError(f"{name}: float32 required on CUDA, got {T.dtype}")
+    if tuple(T.shape) != tuple(shape) or not T.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous {tuple(shape)} "
+                         f"tensor, got {tuple(T.shape)}")
 
 
 def call(name: str, *args, device) -> None:

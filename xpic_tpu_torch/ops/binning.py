@@ -62,6 +62,21 @@ def state_cell_ids(st: BinnedState, geom: Geometry) -> torch.Tensor:
     return torch.where(st.valid, flat, torch.full_like(flat, geom.n_cells))
 
 
+def max_per_cell(sp: ParticleArrays, geom: Geometry) -> int:
+    """Host-side: the maximum particle count of any cell (for choosing
+    K); one device-to-host read."""
+    ids = cell_ids(sp, geom).to(torch.int64)
+    ids = ids[ids < geom.n_cells]
+    if ids.numel() == 0:
+        return 0
+    return int(torch.bincount(ids, minlength=geom.n_cells).max())
+
+
+def choose_slots(k_max: int, pad: int = 8) -> int:
+    """Round the per-cell capacity up to a multiple of ``pad``."""
+    return max(pad, ((k_max + pad - 1) // pad) * pad)
+
+
 def bin_sorted(sp: ParticleArrays, geom: Geometry, slots: int
                ) -> BinnedState:
     """The padded view of a cell-sorted species: slot k of cell g holds

@@ -138,6 +138,29 @@ def deposit_vector(values, t, valid, geom: Geometry, *, order: int,
     return _unrolled_deposit(geom, width, anchor, weight_fn)
 
 
+def deposit_scalar(values, t, valid, geom: Geometry, *, order: int,
+                   width: int, anchor: int, stag: bool = False):
+    """Deposit per-slot scalar values [G, K]; returns [nz, ny, nx].
+    Node-centred with ``stag=False`` (the charge density of
+    ChargeConservation), cell-centred with ``stag=True`` (weights at the
+    half-shifted lattice on every axis: the DistributionMoment deposit)."""
+    masked = torch.where(valid, values, torch.zeros_like(values))
+    wx = axis_weights(t[..., 0], order, width, anchor, stag)
+    wy = axis_weights(t[..., 1], order, width, anchor, stag)
+    wz = axis_weights(t[..., 2], order, width, anchor, stag)
+    acc = None
+    for oz in range(width):
+        for oy in range(width):
+            for ox in range(width):
+                w = masked * (wz[..., oz] * wy[..., oy] * wx[..., ox])
+                dense = torch.sum(w, dim=1).reshape(geom.shape)
+                contrib = _unroll_back(
+                    dense, (anchor + oz, anchor + oy, anchor + ox),
+                    geom.bounds)
+                acc = contrib if acc is None else acc + contrib
+    return acc
+
+
 def blocks_to_grid(blk, geom: Geometry, width: int, anchor: int):
     """Scatter per-cell window blocks [G, 3, w, w, w] (axes z, y, x,
     offsets anchor..anchor+w-1 from the cell) onto the grid

@@ -117,17 +117,15 @@ def _rotate(u, b_planes, coef):
 
 def mass_apply(x, masses, geom: Geometry):
     """y = (sum_species matL_s) @ x without materializing any L;
-    ``masses`` is a sequence of :class:`MassOp`."""
+    ``masses`` is a sequence of :class:`MassOp`.  The per-cell part runs
+    in ``mass_kernel.mass_apply_slots`` (the ``mass_apply`` kernel on the
+    card), once per species."""
+    from .mass_kernel import mass_apply_slots
+
     xg = gather_slots(x, geom)  # [G, 3, 12]
     Y = None
     for op in masses:
-        P = op.packed
-        wn, ws = _axis_hats_planes((P[:, 0], P[:, 1], P[:, 2]))
-        comps = _component_factors(wn, ws)
-        u = tuple(_gather_component(xg[:, c], *comps[c]) for c in range(3))
-        y = _rotate(u, (P[:, 3], P[:, 4], P[:, 5]), P[:, 6])
-        Ys = torch.stack(
-            [_deposit_component(y[c], *comps[c]) for c in range(3)], dim=1)
+        Ys = mass_apply_slots(xg, op.packed)
         Y = Ys if Y is None else Y + Ys
     return deposit_slot_sums(Y, geom)
 
@@ -145,12 +143,12 @@ def deposit_vector_slots(vals, t, geom: Geometry):
 
 def gather_vector_slots(F, t, geom: Geometry):
     """Interpolate an E-staggered field at the slots through the factored
-    s1 weights; returns [G, K, 3]."""
-    Fg = gather_slots(F, geom)
-    wn, ws = _axis_hats(t)
-    comps = _component_factors(wn, ws)
-    return torch.stack(
-        [_gather_component(Fg[:, c], *comps[c]) for c in range(3)], dim=-1)
+    s1 weights; returns [G, K, 3].  The per-slot part runs in
+    ``ecsim_kernel.ecsim_gather`` (the ``slot_gather`` kernel on the
+    card)."""
+    from .ecsim_kernel import ecsim_gather
+
+    return ecsim_gather(t, gather_slots(F, geom))
 
 
 def implicit_current(B_p, v, valid, *, q: float, m: float, mpw: float,

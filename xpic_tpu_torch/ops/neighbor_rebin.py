@@ -152,19 +152,13 @@ def place_plain(P, up, dn, geom: Geometry, axis_ch: int):
 # -- kernel wrappers --------------------------------------------------------
 
 
-def _check_buffer(name, T, shape):
-    if T.dtype != torch.float32:
-        raise TypeError(f"{name}: float32 required on CUDA, got {T.dtype}")
-    if tuple(T.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(T.shape)} != {shape}")
-    if not T.is_contiguous():
-        raise ValueError(f"{name}: tensor must be contiguous")
-
-
 def _check_at(AT: int):
-    if AT not in (8, 16, 32, 64):
+    """The kernels take every width :func:`_buffer_cols` returns for
+    K <= 512: a power of two from 8 to 256 (AT > 32 in 32-column chunks
+    with carried ranks)."""
+    if AT not in (8, 16, 32, 64, 128, 256):
         raise ValueError(
-            f"rebin kernels take a power-of-two buffer width AT in 8..64, "
+            f"rebin kernels take a power-of-two buffer width AT in 8..256, "
             f"got {AT}")
 
 
@@ -178,7 +172,7 @@ def rebin_extract(P, geom: Geometry, axis_ch: int):
     G, C, AT = P.shape
     A = _mover_cols(AT)
     _check_at(AT)
-    _check_buffer("rebin_extract", P, (geom.n_cells, CHANNELS, AT))
+    kernels.check_operand("rebin_extract", P, (geom.n_cells, CHANNELS, AT))
     out = torch.empty_like(P)
     up = torch.empty((G, C, A), dtype=P.dtype, device=P.device)
     dn = torch.empty_like(up)
@@ -200,9 +194,9 @@ def rebin_place(P, up, dn, geom: Geometry, axis_ch: int):
     G, C, AT = P.shape
     A = _mover_cols(AT)
     _check_at(AT)
-    _check_buffer("rebin_place", P, (geom.n_cells, CHANNELS, AT))
-    _check_buffer("rebin_place up", up, (G, CHANNELS, A))
-    _check_buffer("rebin_place dn", dn, (G, CHANNELS, A))
+    kernels.check_operand("rebin_place", P, (geom.n_cells, CHANNELS, AT))
+    kernels.check_operand("rebin_place up", up, (G, CHANNELS, A))
+    kernels.check_operand("rebin_place dn", dn, (G, CHANNELS, A))
     if not (up.device == dn.device == P.device):
         raise ValueError("rebin_place: tensors on different devices")
     out = torch.empty_like(P)

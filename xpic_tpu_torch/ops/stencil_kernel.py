@@ -99,13 +99,8 @@ def cheb_matM_inv(rhs, shift, *, geom: Geometry, degree: int, dt: float):
                                    dt=dt)
     if rhs.device.type != "cuda":
         raise RuntimeError(f"cheb_matM_inv: unsupported device {rhs.device}")
-    shape = (3, geom.nz, geom.ny, geom.nx)
-    if rhs.dtype != torch.float32:
-        raise TypeError(f"cheb_step: float32 required on CUDA, got "
-                        f"{rhs.dtype}")
-    if tuple(rhs.shape) != shape or not rhs.is_contiguous():
-        raise ValueError(f"cheb_step: rhs must be a contiguous {shape} "
-                         f"tensor, got {tuple(rhs.shape)}")
+    kernels.check_operand("cheb_step rhs", rhs,
+                          (3, geom.nz, geom.ny, geom.nx))
     if degree < 1:
         raise ValueError("cheb_step: degree must be >= 1")
     s = _as_shift(shift, rhs).reshape(1).contiguous()
