@@ -7,11 +7,12 @@ Builds the port's CUDA kernels from ``xpic_tpu_torch/csrc`` (into
 the main paths, runs 10 fused ECSIM steps at 32^3 cells x 50 particles
 per cell in float32 (the flagship workload of ``bench.py``), runs the
 config-driven path (``python -m xpic_tpu_torch cfg.json``) at the same
-size, and checks the card's results against the CPU twins at 16^3.
-Phases:
+size for an ECSIM and an eccapfim config, and checks the card's results
+against the CPU's at a smaller size.  Phases:
 
 1. device: card name and power limit, the IEEE float32 pins;
-2. build: one nvcc per source for sm_90a;
+2. build: one nvcc per source for sm_90a, with ptxas's register and
+   spill lines;
 3. kernels against twins: the rebin exchange bitwise at AT = 8, 16, 32,
    64 and 128; the Chebyshev apply to 1e-5 relative; the mass apply at
    K = 80 and 96 to 1e-5 of max |Y|; the slot gather at K = 80 to 2e-6
@@ -24,16 +25,29 @@ Phases:
    through all five kernels: finite tables, 0 < KSP < 100, the energy
    identity within 1e-4 of the total energy, no particle dropped;
 7. the same config at 16^3 x 20 ppc, 2 steps, on the card and on the
-   CPU: tables within 1e-4 (``diagnostics.compare``), equal KSP.
+   CPU: tables within 1e-4 (``diagnostics.compare``), equal KSP;
+8. the eccapfim path: ``runtime.cli.main`` on bench.py's eccapfim config
+   (32^3 x 50 ppc, dt 1.5, float32, the default diagnostics and the
+   ConvergenceHistory table), 1 warm-up step + 3 timed steps: the
+   segment-field kernel and the Chebyshev and rebin kernels all launch,
+   finite tables, the energy identity within 1e-4 of the total energy;
+9. the eccapfim config at 8^3 x 20 ppc, 2 steps, on the card and on the
+   CPU: tables within 1e-4, outer iteration counts within 1 a step.
 
-``python3 chip_smoke.py --profile`` adds, after phase 7, two fused steps
-under ``torch.profiler`` and the phase-6 config for 8 steps through
-``xpic_tpu_torch.runtime.step_profile``.
+Phase 3 also holds the segment-field kernel against its twin on the
+drifted 32^3 x 50 ppc state (K = 96) with moves of up to 0.9 cell a
+axis, at K' = 32 (the fast path's crosser columns, read in place) and
+K' = 96, within 1e-5 of max |E_p| and of max |B_p|.
+
+``python3 chip_smoke.py --profile`` adds, after phase 9, two fused steps
+under ``torch.profiler``, the phase-6 config for 8 steps and the phase-8
+config for 6 steps through ``xpic_tpu_torch.runtime.step_profile``.
 
 Exits non-zero on any failure, and without CUDA.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel
-with its launches on the fused path and on the config-driven path, its
-error against its twin, its time, its twin's and its bound.
+with its launches on the fused path, the ECSIM config-driven path and
+the eccapfim path, its error against its twin, its time, its twin's and
+its bound.
 """
 
 from __future__ import annotations
@@ -53,7 +67,9 @@ SIDE, PPC, VTH, STEPS = 32, 50, 0.014, 10
 KW = dict(q=-1.0, m=1.0, mpw=1.0 / PPC, maxit=100)
 CHEB_TOL, FIELD_TOL, PARTICLE_TOL = 1e-5, 1e-4, 1e-5
 MASS_TOL, GATHER_TOL, TABLE_TOL, ENERGY_TOL = 1e-5, 2e-6, 1e-4, 1e-4
+SEGMENT_TOL = 1e-5
 CLI_STEPS = 5
+FIM_STEPS = 3  # timed, after one warm-up step
 # H100 SXM peaks (vendor datasheet): HBM bytes/s, float32
 # FLOP/s outside the tensor cores.
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
@@ -69,7 +85,13 @@ KERNELS = {
                    "xpic_tpu/ops/pallas_mass.py:44"),
     "slot_gather": ("xpic_tpu_torch/csrc/slot_gather.cu",
                     "xpic_tpu/ops/pallas_ecsim.py:133"),
+    "segment_fields": ("xpic_tpu_torch/csrc/segment_fields.cu",
+                       "xpic_tpu/ops/pallas_implicit.py:115"),
 }
+# The kernels each path runs.
+ECCAPFIM_KERNELS = ("cheb_step", "rebin_extract", "rebin_place",
+                    "segment_fields")
+ECSIM_KERNELS = tuple(k for k in KERNELS if k != "segment_fields")
 
 
 def log(msg: str) -> None:
@@ -161,7 +183,8 @@ def main() -> None:
     kernels.load()
     build_s = time.perf_counter() - t0
     regs = [ln.strip() for ln in kernels.BUILD_LOG.splitlines()
-            if "registers" in ln or "Compiling entry" in ln]
+            if "registers" in ln or "Compiling entry" in ln
+            or "spill" in ln]
     log(f"[2 build] nvcc sm_90a in {build_s:.1f} s "
         f"({'cached' if not kernels.BUILD_LOG else 'built'})")
     for ln in regs:
@@ -252,6 +275,7 @@ def main() -> None:
     check(np.isfinite(rel) and rel <= CHEB_TOL,
           f"cheb_step differs from its twin by {rel:.3e}")
     report.update(slot_kernels(geom, dev, card))
+    report.update(segment_kernel(geom, dev, card))
 
     # -- 4. the main path --------------------------------------------------
     E, B, B0, r, p, alive = bench_state(geom, PPC, VTH)
@@ -278,7 +302,7 @@ def main() -> None:
         f"step_ms={step_ms:.3f} particle_steps_per_s={n / step_ms * 1e3:.4e}"
         f" ksp_iters_per_step={float(iters.float().mean()):.2f} "
         f"(per step {iters.tolist()}) launches {launches} | {name} | {card}")
-    check(all(v > 0 for v in launches.values()),
+    check(all(launches[k] > 0 for k in ECSIM_KERNELS),
           f"a kernel of the main path never launched: {launches}")
     check(bool(torch.isfinite(E1).all() and torch.isfinite(B1).all()),
           "non-finite field")
@@ -310,7 +334,7 @@ def main() -> None:
         outs.append((to_numpy(out), dict(kernels.LAUNCHES)))
     (Eg, Bg, spg, itg), lg = outs[0]
     (Ec, Bc, spc, itc), lc = outs[1]
-    check(all(v > 0 for v in lg.values()) and not any(lc.values()),
+    check(all(lg[k] > 0 for k in ECSIM_KERNELS) and not any(lc.values()),
           f"routing: card launches {lg}, CPU launches {lc}")
     ferr = max(np.abs(Eg - Ec).max() / np.abs(Ec).max(),
                np.abs(Bg - Bc).max() / max(np.abs(Bc).max(), 1e-30))
@@ -354,12 +378,49 @@ def main() -> None:
         log(f"[7 card vs cpu, cli] 16^3 x 20 ppc f32, 2 steps: worst column "
             f"per table {worst} (tol {TABLE_TOL}); KSP card "
             f"{sim_g.ksp_history} cpu {sim_c.ksp_history}")
-        check(all(v > 0 for v in lg.values()) and not any(lc.values()),
+        check(all(lg[k] > 0 for k in ECSIM_KERNELS) and not any(lc.values()),
               f"routing: card launches {lg}, CPU launches {lc}")
         check(all(e <= TABLE_TOL for _, e in worst.values()),
               "card tables differ from the CPU's")
         check(sim_g.ksp_history == sim_c.ksp_history,
               "KSP iterations differ between card and CPU")
+
+    # -- 8. the eccapfim path on the card ------------------------------------
+    with tempfile.TemporaryDirectory(prefix="xpic_smoke_") as work:
+        out, sim, step_times, fim_launches = run_cli(
+            work, SIDE, PPC, FIM_STEPS + 1, "cuda:0", doc=eccapfim_config)
+        check_eccapfim_run(out, sim, fim_launches, name, card, step_times)
+
+    # -- 9. the eccapfim path, card against CPU -------------------------------
+    with tempfile.TemporaryDirectory(prefix="xpic_smoke_") as work:
+        runs = {}
+        for device in ("cuda:0", "cpu"):
+            runs[device] = run_cli(os.path.join(work, device.split(":")[0]),
+                                   8, 20, 2, device, doc=eccapfim_config)
+        (out_g, sim_g, _, lg), (out_c, sim_c, _, lc) = (runs["cuda:0"],
+                                                        runs["cpu"])
+        from xpic_tpu_torch.diagnostics.compare import TABLES, table_errors
+
+        worst = {}
+        for table in TABLES:
+            # charge is conserved to rounding: its norms against rho / dt
+            errs = table_errors(table, out_c, out_g, n_cells=8 ** 3,
+                                charge_scale=np.sqrt(8 ** 3) / 1.5)
+            worst[table] = max(errs.items(), key=lambda kv: kv[1])
+            log(f"    {table}: {errs}")
+        log(f"[9 card vs cpu, eccapfim] 8^3 x 20 ppc f32, 2 steps: worst "
+            f"column per table {worst} (tol {TABLE_TOL}); outer iterations "
+            f"card {sim_g.outer_history} cpu {sim_c.outer_history}; CN "
+            f"sweeps card {sim_g.cn_history} cpu {sim_c.cn_history}")
+        check(all(lg[k] > 0 for k in ECCAPFIM_KERNELS)
+              and not any(lc.values()),
+              f"routing: card launches {lg}, CPU launches {lc}")
+        check(all(e <= TABLE_TOL for _, e in worst.values()),
+              "eccapfim card tables differ from the CPU's")
+        check(len(sim_g.outer_history) == len(sim_c.outer_history) == 2
+              and all(abs(a - b) <= 1 for a, b in zip(sim_g.outer_history,
+                                                      sim_c.outer_history)),
+              "eccapfim outer iterations differ by more than 1 a step")
 
     if "--profile" in sys.argv[1:]:
         profile_paths(name, card, dev, lambda: ecsim_multi_step(
@@ -367,9 +428,11 @@ def main() -> None:
 
     rows = []
     for kname, (src, repl) in KERNELS.items():
+        own = fim_launches if kname == "segment_fields" else launches
         row = dict(name=kname, route="cuda", source=src, replaces=repl,
-                   launches=launches[kname],
-                   launches_cli=cli_launches[kname], library_ms=None,
+                   launches=own[kname], launches_fused=launches[kname],
+                   launches_cli=cli_launches[kname],
+                   launches_eccapfim=fim_launches[kname], library_ms=None,
                    **report[kname])
         if kname == "rebin_place":
             row["also_replaces"] = ["xpic_tpu/ops/neighbor_rebin.py:496",
@@ -496,11 +559,11 @@ def cli_config(out_dir, side, ppc, steps):
     }
 
 
-def run_cli(work, side, ppc, steps, device):
-    """``runtime.cli.main`` on :func:`cli_config` in ``work``.  Returns
-    the output directory, the simulation it built, each step's time in
-    ms (closed by a device synchronisation) and the kernel launches of
-    the run (counts set to 0 just before it)."""
+def run_cli(work, side, ppc, steps, device, doc=None):
+    """``runtime.cli.main`` on ``doc`` (default :func:`cli_config`) in
+    ``work``.  Returns the output directory, the simulation it built,
+    each step's time in ms (closed by a device synchronisation) and the
+    kernel launches of the run (counts set to 0 just before it)."""
     from xpic_tpu_torch import kernels
     from xpic_tpu_torch import schemes
     from xpic_tpu_torch.commands import particles_load
@@ -510,7 +573,7 @@ def run_cli(work, side, ppc, steps, device):
     out = os.path.join(work, "out")
     cfg = os.path.join(work, "cfg.json")
     with open(cfg, "w") as fh:
-        json.dump(cli_config(out, side, ppc, steps), fh)
+        json.dump((doc or cli_config)(out, side, ppc, steps), fh)
     built, step_ms = [], []
     build = schemes.build_simulation
     sync = (torch.cuda.synchronize if device.startswith("cuda")
@@ -566,7 +629,7 @@ def check_cli_run(out, sim, launches, name, card, step_ms):
         f"max |dE+dB+dK|/(wE+wB+wK) = {closure.max():.3e} (tol "
         f"{ENERGY_TOL}), dumps {dumps}, launches {launches} | {name} | "
         f"{card}")
-    check(all(v > 0 for v in launches.values()),
+    check(all(launches[k] > 0 for k in ECSIM_KERNELS),
           f"a kernel of the config-driven path never launched: {launches}")
     check(all(np.isfinite(rows).all() and rows.shape[0] == CLI_STEPS + 1
               for _, rows in tables.values()), "a table row is not finite")
@@ -578,11 +641,137 @@ def check_cli_run(out, sim, launches, name, card, step_ms):
           f"dumps {dumps}")
 
 
+def eccapfim_config(out_dir, side, ppc, steps):
+    """bench.py's eccapfim workload: ``side``^3 cells of 0.5, dt 1.5,
+    periodic, one electron species at ``ppc`` and T = 0.1 keV, no field;
+    the default diagnostics (and ConvergenceHistory) every step."""
+    L = side * 0.5
+    periodic = "DM_BOUNDARY_PERIODIC"
+    return {
+        "Simulation": "eccapfim",
+        "OutputDirectory": out_dir,
+        "Geometry": {"x": L, "y": L, "z": L, "t": steps * 1.5,
+                     "dx": 0.5, "dy": 0.5, "dz": 0.5, "dt": 1.5,
+                     "diagnose_period": 1.5, "da_boundary_x": periodic,
+                     "da_boundary_y": periodic, "da_boundary_z": periodic},
+        "Particles": [{"sort_name": "electrons", "Np": ppc, "n": 1.0,
+                       "q": -1.0, "m": 1.0, "T": 0.1}],
+        "Presets": [
+            {"command": "SetParticles", "particles": "electrons",
+             "coordinate": {"name": "CoordinateInBox"},
+             "momentum": {"name": "MaxwellianMomentum", "tov": True}},
+        ],
+        "Diagnostics": [],
+    }
+
+
+def check_eccapfim_run(out, sim, launches, name, card, step_ms):
+    """Phase 8's gates and line: the first step is the warm-up."""
+    from xpic_tpu_torch.diagnostics.compare import TABLES, read_table
+
+    tables = {t: read_table(os.path.join(out, "temporal", t))
+              for t in TABLES}
+    # ConvergenceHistory: one row a step from step 1, as long as the
+    # step's residual history
+    with open(os.path.join(out, "temporal", "convergence_history.txt")) as fh:
+        conv = [np.array(ln.split(), float) for ln in fh.read().splitlines()[1:]]
+    h_en, en = tables["energy.txt"]
+    h_ec, ec = tables["energy_conservation.txt"]
+    n_en = (len(h_en) - 1) // 2
+    total = en[:, 1:1 + n_en].sum(axis=1)
+    closure = np.abs(ec[:, h_ec.index("dE+dB+dK")]) / total
+    sp = sim.species[0]
+    n = sp.count()
+    timed = step_ms[1:]
+    ms = statistics.median(timed)
+    sweeps = [c for counts in sim.cn_history[1:] for c in counts]
+    log(f"[8 eccapfim path] python -m xpic_tpu_torch cfg.json: {SIDE}^3 x "
+        f"{PPC} ppc f32, 1 + {FIM_STEPS} steps, K={sp.slots}, {n} "
+        f"particles: ms/step median {ms:.3f} (per step "
+        f"{[round(v, 3) for v in step_ms]}, the first a warm-up), "
+        f"particle_steps_per_s={n / ms * 1e3:.4e}, outer iterations per "
+        f"step {sim.outer_history}, CN iterations per sweep "
+        f"{statistics.mean(sweeps):.2f} (sweeps of the timed steps "
+        f"{sim.cn_history[1:]}), fallback steps {sum(sim.fallback_history)}"
+        f", max |dE+dB+dK|/(wE+wB+wK) = {closure.max():.3e} (tol "
+        f"{ENERGY_TOL}), launches {launches} | {name} | {card}")
+    check(all(launches[k] > 0 for k in ECCAPFIM_KERNELS),
+          f"a kernel of the eccapfim path never launched: {launches}")
+    check(all(np.isfinite(rows).all() and rows.shape[0] == FIM_STEPS + 2
+              for _, rows in tables.values())
+          and len(conv) == FIM_STEPS + 1
+          and all(np.isfinite(row).all() for row in conv),
+          "a table row is not finite")
+    check(closure.max() <= ENERGY_TOL, "the eccapfim energy identity fails")
+
+
+def segment_kernel(geom, dev, card):
+    """Phase 3 for the segment-field kernel: the drifted 32^3 x 50 ppc
+    state at K = 96 (the eccapfim run's K), random E and B, moves of up
+    to +-0.9 cell a axis (1 to 4 segments) and rows with tn == t0; the
+    fast path's K' = 32 crosser columns read in place, and K' = 96."""
+    from xpic_tpu_torch.convert import state_from_numpy
+    from xpic_tpu_torch.ops.binning import bin_state, drift_state
+    from xpic_tpu_torch.ops.gather_scatter import cell_t
+    from xpic_tpu_torch.ops.implicit_esirkepov import gather_window_blocks
+    from xpic_tpu_torch.ops.segment_kernel import (
+        FLOPS_PER_SEGMENT,
+        live_segments,
+        segment_fields,
+        segment_fields_plain,
+    )
+
+    rng = np.random.default_rng(11)
+    shape = (3,) + geom.shape
+    *_, r, p, alive = bench_state(geom, PPC, VTH, seed=1)
+    Et, Bt, _, sp = state_from_numpy(
+        0.1 * rng.standard_normal(shape), 0.1 * rng.standard_normal(shape),
+        np.zeros(1), r, p, alive, device=dev, dtype=torch.float32)
+    st = drift_state(bin_state(sp, geom, 96), geom)
+    t0 = cell_t(geom, st.r)
+    move = torch.tensor(rng.uniform(-0.9, 0.9, tuple(t0.shape)),
+                        dtype=torch.float32, device=dev)
+    move[:, :4] = 0.0  # rows of slots that stay put
+    tn = t0 + move
+    Eblk = gather_window_blocks(Et, geom)
+    Bblk = gather_window_blocks(Bt, geom)
+    report = {}
+    for kp in (32, 96):
+        a, b = t0[:, :kp], tn[:, :kp]
+        E_k, B_k = segment_fields(Eblk, Bblk, a, b)
+        E_p, B_p = segment_fields_plain(Eblk, Bblk, a, b)
+        torch.cuda.synchronize()
+        errs = [float((k - q).abs().max()) for k, q in ((E_k, E_p),
+                                                        (B_k, B_p))]
+        rel = max(errs[0] / float(E_p.abs().max()),
+                  errs[1] / float(B_p.abs().max()))
+        G = a.shape[0]
+        segs = live_segments(a, b)
+        # Read the two windows and t0, tn once; write E_p and B_p.
+        row = dict(max_abs_err=max(errs),
+                   ms=time_ms(lambda: segment_fields(Eblk, Bblk, a, b)),
+                   plain_ms=time_ms(lambda: segment_fields_plain(
+                       Eblk, Bblk, a, b)),
+                   **bound(4 * (2 * G * 648 + 4 * G * kp * 3),
+                           FLOPS_PER_SEGMENT * segs))
+        log(f"[3 kernels] segment_fields K'={kp} of K=96 ({segs} live "
+            f"segments, {segs / (G * kp):.2f} a slot): max|d|/max = "
+            f"{rel:.3e} (tol {SEGMENT_TOL}) | {row['ms']:.4f} ms vs twin "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}) | {card}")
+        check(np.isfinite(rel) and rel <= SEGMENT_TOL,
+              f"segment_fields differs from its twin by {rel:.3e} at "
+              f"K'={kp}")
+        if kp == 32:
+            report["segment_fields"] = row
+    return report
+
+
 def profile_paths(name, card, dev, fused_run):
     """``--profile``: two fused steps (phase 4's state) under
-    ``torch.profiler``, and the phase-6 config for 8 steps through
-    ``runtime.step_profile`` (per-phase and per-diagnostic times, and a
-    2-step ``torch.profiler`` window)."""
+    ``torch.profiler``, the phase-6 config for 8 steps and the phase-8
+    config for 6 steps through ``runtime.step_profile`` (per-phase and
+    per-diagnostic times, and a 2-step ``torch.profiler`` window)."""
     from xpic_tpu_torch.config import Config
     from xpic_tpu_torch.runtime.step_profile import device_window, profile_run
     from xpic_tpu_torch.schemes import build_simulation
@@ -597,6 +786,14 @@ def profile_paths(name, card, dev, fused_run):
         sim = build_simulation(Config.from_json(doc), device="cuda:0")
         prof = profile_run(sim)
     log(f"[profile] {SIDE}^3 x {PPC} ppc f32, config-driven path | {name} "
+        f"| {card}")
+    log(f"[profile] {json.dumps(prof)}")
+
+    with tempfile.TemporaryDirectory(prefix="xpic_smoke_") as work:
+        doc = eccapfim_config(os.path.join(work, "out"), SIDE, PPC, 6)
+        sim = build_simulation(Config.from_json(doc), device="cuda:0")
+        prof = profile_run(sim)
+    log(f"[profile] {SIDE}^3 x {PPC} ppc f32, eccapfim path | {name} "
         f"| {card}")
     log(f"[profile] {json.dumps(prof)}")
 

@@ -163,7 +163,7 @@ def test_dtype_follows_xpic_x64(tmp_path, monkeypatch):
     assert sim.dtype == torch.float32 and sim.E.dtype == torch.float32
 
 
-@pytest.mark.parametrize("scheme", ["basic", "ecsimcorr", "eccapfim"])
+@pytest.mark.parametrize("scheme", ["basic", "ecsimcorr"])
 def test_unported_schemes_raise(tmp_path, scheme):
     cfg = Config.from_json(make_doc(tmp_path / "out", scheme))
     with pytest.raises(NotImplementedError, match=scheme):

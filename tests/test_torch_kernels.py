@@ -5,7 +5,9 @@ The rebin kernels must match their twins bit for bit through the whole
 exchange at AT = 16, 32 and 128; the Chebyshev kernel to 1e-5 relative
 (nvcc contracts multiply-adds into FMAs, which round once); the mass
 apply to 1e-5 of max |Y| (its K-sums run in another order than the
-twin's) and the slot gather to 2e-6 of max |E_p|.
+twin's), the slot gather to 2e-6 of max |E_p|, and the segment-field
+gather to 1e-5 of max |E_p| and max |B_p| (FMAs, and the segment
+weights applied in another order).
 
     python -m pytest --noconftest -o addopts="" tests/test_torch_kernels.py -q
 """
@@ -20,9 +22,14 @@ from xpic_tpu_torch.convert import state_from_numpy
 from xpic_tpu_torch.ops import neighbor_rebin as NR
 from xpic_tpu_torch.ops.binning import bin_state, drift_state
 from xpic_tpu_torch.ops.ecsim_kernel import ecsim_gather, ecsim_gather_plain
+from xpic_tpu_torch.ops.implicit_esirkepov import gather_window_blocks
 from xpic_tpu_torch.ops.mass_kernel import (
     mass_apply_slots,
     mass_apply_slots_plain,
+)
+from xpic_tpu_torch.ops.segment_kernel import (
+    segment_fields,
+    segment_fields_plain,
 )
 from xpic_tpu_torch.ops.stencil_kernel import (
     cheb_matM_inv,
@@ -169,3 +176,52 @@ def test_slot_gather_kernel_matches_twin(dev, K):
     assert kernels.LAUNCHES["slot_gather"] == before + 1
     assert got.shape == ref.shape == (16 ** 3, K, 3)
     assert float((got - ref).abs().max()) <= 2e-6 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("kp", [8, 32, 40])
+@pytest.mark.parametrize("shape", [(16, 16, 16), (8, 6, 4)],
+                         ids=["16cube", "8x6x4"])
+def test_segment_fields_kernel_matches_twin(dev, kp, shape):
+    """K' = kp columns of a [G, 40, 3] move, read in place (kp < 40) or
+    whole; moves up to 0.9 cell a axis, the first 3 slots at rest."""
+    nx, ny, nz = shape
+    geom = Geometry(dx=0.5, dy=0.4, dz=0.6, dt=1.5, nx=nx, ny=ny, nz=nz,
+                    nt=1)
+    G = geom.n_cells
+    rng = np.random.default_rng(kp)
+
+    def f32(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    E = f32(rng.standard_normal((3,) + geom.shape))
+    B = f32(rng.standard_normal((3,) + geom.shape))
+    t0 = f32(rng.random((G, 40, 3)))
+    move = rng.uniform(-0.9, 0.9, (G, 40, 3))
+    move[:, :3] = 0.0
+    tn = t0 + f32(move)
+    Eblk, Bblk = gather_window_blocks(E, geom), gather_window_blocks(B, geom)
+    before = kernels.LAUNCHES["segment_fields"]
+    got = segment_fields(Eblk, Bblk, t0[:, :kp], tn[:, :kp])
+    ref = segment_fields_plain(Eblk, Bblk, t0[:, :kp], tn[:, :kp])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["segment_fields"] == before + 1
+    for g, r in zip(got, ref):
+        assert g.shape == (G, kp, 3)
+        assert float((g - r).abs().max()) <= 1e-5 * float(r.abs().max())
+
+
+def test_segment_fields_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    geom = Geometry(dx=0.5, dy=0.5, dz=0.5, dt=1.5, nx=4, ny=4, nz=4, nt=1)
+    G = geom.n_cells
+    blk = torch.zeros((G, 3, 6, 6, 6), device=dev)
+    t = torch.zeros((G, 16, 3), device=dev)
+    with pytest.raises(TypeError):
+        segment_fields(blk.double(), blk, t, t)
+    with pytest.raises(TypeError):
+        segment_fields(blk, blk, t.double(), t.double())
+    with pytest.raises(ValueError):
+        segment_fields(blk[: G // 2], blk, t, t)
+    with pytest.raises(ValueError):  # slots not contiguous
+        segment_fields(blk, blk, t[:, ::2], t[:, ::2])
+    with pytest.raises(ValueError):  # different row strides
+        segment_fields(blk, blk, t[:, :8], t[:, :8].contiguous())

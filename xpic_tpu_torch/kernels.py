@@ -32,7 +32,8 @@ TOOLKIT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 # C entry point -> argument types (pointers and the stream as void*).
 SIGNATURES = {
     # rhs, shift, x, r, d_in, d_out, nx, ny, nz, periodic x/y/z,
@@ -47,6 +48,8 @@ SIGNATURES = {
     "mass_apply": (_P, _P, _P, _I, _I, _P),
     # t, Fg, out, G, K, stream
     "slot_gather": (_P, _P, _P, _I, _I, _P),
+    # Eblk, Bblk, t0, tn, E_p, B_p, G, K, row stride of t0/tn, stream
+    "segment_fields": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _P),
 }
 
 LAUNCHES = {name: 0 for name in SIGNATURES}

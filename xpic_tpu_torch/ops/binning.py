@@ -197,3 +197,24 @@ def rebin(st: BinnedState, geom: Geometry) -> BinnedState:
 def rebin_checked(st: BinnedState, geom: Geometry):
     """:func:`rebin` plus ``load = [max_per_cell, dropped, moved]``."""
     return _rebin_neighbor_guarded(st, geom)
+
+
+def wrap_state(st: BinnedState, geom: Geometry) -> BinnedState:
+    """Apply the global coordinate boundaries (periodic wrap / open kill)
+    to possibly out-of-domain positions without moving the particles."""
+    return _drift_impl(st, geom, 0.0)
+
+
+def migrate_checked(st: BinnedState, geom: Geometry):
+    """Boundary map + checked rebin: the full per-step migration of a
+    state whose positions moved in place (eccapfim's committed move)."""
+    return rebin_checked(wrap_state(st, geom), geom)
+
+
+def rebin_overflow(st: BinnedState, geom: Geometry) -> torch.Tensor:
+    """Number of live particles that a :func:`rebin` would drop because
+    their destination cell is already at slot capacity."""
+    G, K = st.valid.shape
+    ids = state_cell_ids(st, geom).reshape(-1)
+    counts = torch.bincount(ids, minlength=G + 1)
+    return torch.sum(torch.clamp(counts[:G] - K, min=0))

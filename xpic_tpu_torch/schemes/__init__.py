@@ -2,7 +2,7 @@
 
 ``build_simulation`` dispatches on the config ``Simulation`` key like the
 reference factory (src/interfaces/simulation.cpp:160-182).  The port has
-``ecsim``; ``basic``, ``ecsimcorr`` and ``eccapfim`` raise
+``ecsim`` and ``eccapfim``; ``basic`` and ``ecsimcorr`` raise
 ``NotImplementedError`` until they are ported.
 
 Device and dtype: the entry points run on the card.  ``device=None``
@@ -23,7 +23,7 @@ from ..config import Config
 
 # Schemes of the JAX package the port does not have yet, and their
 # ROADMAP items.
-NOT_PORTED = {"basic": "A8", "ecsimcorr": "A9", "eccapfim": "A10"}
+NOT_PORTED = {"basic": "A8", "ecsimcorr": "A9"}
 
 
 def default_dtype() -> torch.dtype:
@@ -42,13 +42,14 @@ def resolve_device(device=None) -> torch.device:
 
 
 def build_simulation(cfg: Config, device=None, dtype=None):
+    from .eccapfim import EccapfimSimulation
     from .ecsim import EcsimSimulation
 
     if cfg.scheme in NOT_PORTED:
         raise NotImplementedError(
             f"simulation scheme {cfg.scheme!r} is not ported to "
             f"xpic_tpu_torch yet (ROADMAP {NOT_PORTED[cfg.scheme]})")
-    table = {"ecsim": EcsimSimulation}
+    table = {"ecsim": EcsimSimulation, "eccapfim": EccapfimSimulation}
     if cfg.scheme not in table:
         raise ValueError(f"unknown simulation scheme: {cfg.scheme!r}")
     device = resolve_device(device)
