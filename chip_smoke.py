@@ -7,8 +7,9 @@ Builds the port's CUDA kernels from ``xpic_tpu_torch/csrc`` (into
 the main paths, runs 10 fused ECSIM steps at 32^3 cells x 50 particles
 per cell in float32 (the flagship workload of ``bench.py``), runs the
 config-driven path (``python -m xpic_tpu_torch cfg.json``) at the same
-size for an ECSIM and an eccapfim config, and checks the card's results
-against the CPU's at a smaller size.  Phases:
+size for an ECSIM, an eccapfim and an ecsimcorr config (the last on both
+mass routes), and checks the card's results against the CPU's at a
+smaller size.  Phases:
 
 1. device: card name and power limit, the IEEE float32 pins;
 2. build: one nvcc per source for sm_90a, with ptxas's register and
@@ -32,22 +33,37 @@ against the CPU's at a smaller size.  Phases:
    segment-field kernel and the Chebyshev and rebin kernels all launch,
    finite tables, the energy identity within 1e-4 of the total energy;
 9. the eccapfim config at 8^3 x 20 ppc, 2 steps, on the card and on the
-   CPU: tables within 1e-4, outer iteration counts within 1 a step.
+   CPU: tables within 1e-4, outer iteration counts within 1 a step;
+10. the ecsimcorr path: ``runtime.cli.main`` on bench.py's ecsimcorr
+    config (32^3 x 50 ppc, dt 1.5, float32, the default diagnostics every
+    step), 1 warm-up step + 3 timed steps, once on each mass route
+    (``XPIC_MASS=free``: the mass-apply kernel and no fill;
+    ``XPIC_MASS=blocks``: the fill kernel and no mass apply; the slot
+    gather, Chebyshev and rebin kernels on both): finite tables,
+    0 < predict and correct KSP < 100, the current-consistency norm
+    < 0.1, the charge-continuity norms within 1e-5 of rho / dt, and the
+    two routes' tables within 1e-4 of each other;
+11. the ecsimcorr config at 8^3 x 20 ppc, 2 steps, on the ``blocks``
+    route, on the card and on the CPU: tables within 1e-4, equal predict
+    and correct KSP.
 
 Phase 3 also holds the segment-field kernel against its twin on the
 drifted 32^3 x 50 ppc state (K = 96) with moves of up to 0.9 cell a
 axis, at K' = 32 (the fast path's crosser columns, read in place) and
-K' = 96, within 1e-5 of max |E_p| and of max |B_p|.
+K' = 96, within 1e-5 of max |E_p| and of max |B_p|, and the ECSIM fill
+kernel against its twin on the drifted 32^3 x 50 ppc state at K = 96
+and 112, within 1e-5 of max |L| and of max |Islot|.
 
-``python3 chip_smoke.py --profile`` adds, after phase 9, two fused steps
-under ``torch.profiler``, the phase-6 config for 8 steps and the phase-8
-config for 6 steps through ``xpic_tpu_torch.runtime.step_profile``.
+``python3 chip_smoke.py --profile`` adds, after phase 11, two fused steps
+under ``torch.profiler``, the phase-6 config for 8 steps, the phase-8
+config for 6 steps and the phase-10 config for 6 steps on each mass
+route through ``xpic_tpu_torch.runtime.step_profile``.
 
 Exits non-zero on any failure, and without CUDA.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel
-with its launches on the fused path, the ECSIM config-driven path and
-the eccapfim path, its error against its twin, its time, its twin's and
-its bound.
+with its launches on the fused path, the ECSIM config-driven path, the
+eccapfim path and the two ecsimcorr runs, its error against its twin,
+its time, its twin's and its bound.
 """
 
 from __future__ import annotations
@@ -67,9 +83,10 @@ SIDE, PPC, VTH, STEPS = 32, 50, 0.014, 10
 KW = dict(q=-1.0, m=1.0, mpw=1.0 / PPC, maxit=100)
 CHEB_TOL, FIELD_TOL, PARTICLE_TOL = 1e-5, 1e-4, 1e-5
 MASS_TOL, GATHER_TOL, TABLE_TOL, ENERGY_TOL = 1e-5, 2e-6, 1e-4, 1e-4
-SEGMENT_TOL = 1e-5
+SEGMENT_TOL, FILL_TOL, CHARGE_TOL = 1e-5, 1e-5, 1e-5
 CLI_STEPS = 5
-FIM_STEPS = 3  # timed, after one warm-up step
+FIM_STEPS = CORR_STEPS = 3  # timed, after one warm-up step
+MASS_ROUTES = ("free", "blocks")
 # H100 SXM peaks (vendor datasheet): HBM bytes/s, float32
 # FLOP/s outside the tensor cores.
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
@@ -87,11 +104,21 @@ KERNELS = {
                     "xpic_tpu/ops/pallas_ecsim.py:133"),
     "segment_fields": ("xpic_tpu_torch/csrc/segment_fields.cu",
                        "xpic_tpu/ops/pallas_implicit.py:115"),
+    "ecsim_fill": ("xpic_tpu_torch/csrc/ecsim_fill.cu",
+                   "xpic_tpu/ops/pallas_ecsim.py:72"),
 }
 # The kernels each path runs.
 ECCAPFIM_KERNELS = ("cheb_step", "rebin_extract", "rebin_place",
                     "segment_fields")
-ECSIM_KERNELS = tuple(k for k in KERNELS if k != "segment_fields")
+ECSIM_KERNELS = ("cheb_step", "rebin_extract", "rebin_place", "mass_apply",
+                 "slot_gather")
+# ecsimcorr's kernels on each mass route; the other route's mass kernel
+# must not launch.
+CORR_KERNELS = {
+    "free": ECSIM_KERNELS,
+    "blocks": ("cheb_step", "rebin_extract", "rebin_place", "ecsim_fill",
+               "slot_gather"),
+}
 
 
 def log(msg: str) -> None:
@@ -276,6 +303,7 @@ def main() -> None:
           f"cheb_step differs from its twin by {rel:.3e}")
     report.update(slot_kernels(geom, dev, card))
     report.update(segment_kernel(geom, dev, card))
+    fill_rows = fill_kernel(geom, dev, card)
 
     # -- 4. the main path --------------------------------------------------
     E, B, B0, r, p, alive = bench_state(geom, PPC, VTH)
@@ -422,18 +450,83 @@ def main() -> None:
                                                       sim_c.outer_history)),
               "eccapfim outer iterations differ by more than 1 a step")
 
+    # -- 10. the ecsimcorr path on both mass routes ------------------------
+    corr_launches = {}
+    with tempfile.TemporaryDirectory(prefix="xpic_smoke_") as work:
+        outs = {}
+        for mass in MASS_ROUTES:
+            os.environ["XPIC_MASS"] = mass
+            out, sim, step_times, corr_launches[mass] = run_cli(
+                os.path.join(work, mass), SIDE, PPC, CORR_STEPS + 1, "cuda:0",
+                doc=ecsimcorr_config)
+            check_ecsimcorr_run(mass, out, sim, corr_launches[mass], name,
+                                card, step_times)
+            outs[mass] = out
+            corr_k = sim.species[0].slots
+        from xpic_tpu_torch.diagnostics.compare import TABLES, table_errors
+
+        worst = {}
+        for table in TABLES:
+            errs = table_errors(table, outs["free"], outs["blocks"],
+                                n_cells=SIDE ** 3,
+                                charge_scale=np.sqrt(SIDE ** 3) / 1.5)
+            worst[table] = max(errs.items(), key=lambda kv: kv[1])
+        log(f"[10 ecsimcorr routes] blocks against free, worst column per "
+            f"table {worst} (tol {TABLE_TOL})")
+        check(all(e <= TABLE_TOL for _, e in worst.values()),
+              "the two mass routes' ecsimcorr tables differ")
+    # The fill kernel's row is the one at the K the blocks run ended with;
+    # a K that phase 3 did not measure is measured now.
+    if corr_k not in fill_rows:
+        fill_rows.update(fill_kernel(geom, dev, card, (corr_k,)))
+    report["ecsim_fill"] = fill_rows[corr_k]
+
+    # -- 11. the ecsimcorr path on the blocks route, card against CPU --------
+    os.environ["XPIC_MASS"] = "blocks"
+    with tempfile.TemporaryDirectory(prefix="xpic_smoke_") as work:
+        runs = {}
+        for device in ("cuda:0", "cpu"):
+            runs[device] = run_cli(os.path.join(work, device.split(":")[0]),
+                                   8, 20, 2, device, doc=ecsimcorr_config)
+        (out_g, sim_g, _, lg), (out_c, sim_c, _, lc) = (runs["cuda:0"],
+                                                        runs["cpu"])
+        from xpic_tpu_torch.diagnostics.compare import TABLES, table_errors
+
+        worst = {}
+        for table in TABLES:
+            errs = table_errors(table, out_c, out_g, n_cells=8 ** 3,
+                                charge_scale=np.sqrt(8 ** 3) / 1.5)
+            worst[table] = max(errs.items(), key=lambda kv: kv[1])
+            log(f"    {table}: {errs}")
+        log(f"[11 card vs cpu, ecsimcorr blocks] 8^3 x 20 ppc f32, 2 steps: "
+            f"worst column per table {worst} (tol {TABLE_TOL}); predict KSP "
+            f"card {sim_g.ksp_history} cpu {sim_c.ksp_history}; correct KSP "
+            f"card {sim_g.correct_history} cpu {sim_c.correct_history}")
+        check(all(lg[k] > 0 for k in CORR_KERNELS["blocks"])
+              and not any(lc.values()),
+              f"routing: card launches {lg}, CPU launches {lc}")
+        check(all(e <= TABLE_TOL for _, e in worst.values()),
+              "ecsimcorr card tables differ from the CPU's")
+        check(sim_g.ksp_history == sim_c.ksp_history
+              and sim_g.correct_history == sim_c.correct_history,
+              "ecsimcorr KSP iterations differ between card and CPU")
+    del os.environ["XPIC_MASS"]
+
     if "--profile" in sys.argv[1:]:
         profile_paths(name, card, dev, lambda: ecsim_multi_step(
             E, B, B0, sp, geom, slots, n_steps=2, **KW))
 
     rows = []
     for kname, (src, repl) in KERNELS.items():
-        own = fim_launches if kname == "segment_fields" else launches
+        own = {"segment_fields": fim_launches,
+               "ecsim_fill": corr_launches["blocks"]}.get(kname, launches)
         row = dict(name=kname, route="cuda", source=src, replaces=repl,
                    launches=own[kname], launches_fused=launches[kname],
                    launches_cli=cli_launches[kname],
-                   launches_eccapfim=fim_launches[kname], library_ms=None,
-                   **report[kname])
+                   launches_eccapfim=fim_launches[kname],
+                   launches_ecsimcorr_free=corr_launches["free"][kname],
+                   launches_ecsimcorr_blocks=corr_launches["blocks"][kname],
+                   library_ms=None, **report[kname])
         if kname == "rebin_place":
             row["also_replaces"] = ["xpic_tpu/ops/neighbor_rebin.py:496",
                                     "xpic_tpu/ops/neighbor_rebin.py:525"]
@@ -563,7 +656,10 @@ def run_cli(work, side, ppc, steps, device, doc=None):
     """``runtime.cli.main`` on ``doc`` (default :func:`cli_config`) in
     ``work``.  Returns the output directory, the simulation it built,
     each step's time in ms (closed by a device synchronisation) and the
-    kernel launches of the run (counts set to 0 just before it)."""
+    kernel launches of the run (counts set to 0 just before it).  An
+    ecsimcorr simulation also records each step's correct-solve
+    iterations and consistency norm (``correct_history``,
+    ``norm_history``)."""
     from xpic_tpu_torch import kernels
     from xpic_tpu_torch import schemes
     from xpic_tpu_torch.commands import particles_load
@@ -589,7 +685,11 @@ def run_cli(work, side, ppc, steps, device, doc=None):
             step(t)
             sync()
             step_ms.append((time.perf_counter() - t0) * 1e3)
+            if sim.scheme_name == "ecsimcorr":
+                sim.correct_history.append(sim.correct_ksp_iters)
+                sim.norm_history.append(sim.current_consistency_norm)
 
+        sim.correct_history, sim.norm_history = [], []
         sim.timestep_implementation = timed_step
         built.append(sim)
         return sim
@@ -705,6 +805,118 @@ def check_eccapfim_run(out, sim, launches, name, card, step_ms):
     check(closure.max() <= ENERGY_TOL, "the eccapfim energy identity fails")
 
 
+def ecsimcorr_config(out_dir, side, ppc, steps):
+    """bench.py's ecsimcorr workload: ``side``^3 cells of 0.5, dt 1.5,
+    periodic, one electron species at ``ppc`` and T = 0.1 keV, no field;
+    the default diagnostics every step."""
+    doc = eccapfim_config(out_dir, side, ppc, steps)
+    doc["Simulation"] = "ecsimcorr"
+    return doc
+
+
+def check_ecsimcorr_run(mass, out, sim, launches, name, card, step_ms):
+    """Phase 10's gates and line for one mass route: the first step is
+    the warm-up."""
+    from xpic_tpu_torch.diagnostics.compare import TABLES, read_table
+
+    tables = {t: read_table(os.path.join(out, "temporal", t))
+              for t in TABLES}
+    h_ch, ch = tables["charge_conservation.txt"]
+    n_cells = SIDE ** 3
+    # The continuity norms against those of rho / dt (|q n| = 1 a cell).
+    charge = max(float(np.abs(ch[:, c]).max())
+                 / ((n_cells if h.startswith("N1") else np.sqrt(n_cells))
+                    / 1.5)
+                 for c, h in enumerate(h_ch) if h != "Time")
+    sp = sim.species[0]
+    n = sp.count()
+    ms = statistics.median(step_ms[1:])
+    log(f"[10 ecsimcorr path, {mass}] python -m xpic_tpu_torch cfg.json: "
+        f"{SIDE}^3 x {PPC} ppc f32, 1 + {CORR_STEPS} steps, K={sp.slots}, "
+        f"{n} particles: ms/step median {ms:.3f} (per step "
+        f"{[round(v, 3) for v in step_ms]}, the first a warm-up), "
+        f"particle_steps_per_s={n / ms * 1e3:.4e}, predict KSP "
+        f"{sim.ksp_history}, correct KSP {sim.correct_history}, consistency "
+        f"norm {sim.norm_history} (tol 0.1), charge continuity / (rho/dt) "
+        f"{charge:.3e} (tol {CHARGE_TOL}), launches {launches} | {name} | "
+        f"{card}")
+    other = "mass_apply" if mass == "blocks" else "ecsim_fill"
+    check(all(launches[k] > 0 for k in CORR_KERNELS[mass])
+          and launches[other] == 0,
+          f"the ecsimcorr {mass} route's launches {launches}")
+    check(all(np.isfinite(rows).all() and rows.shape[0] == CORR_STEPS + 2
+              for _, rows in tables.values()), "a table row is not finite")
+    check(all(0 < it < KW["maxit"]
+              for it in sim.ksp_history + sim.correct_history)
+          and len(sim.correct_history) == CORR_STEPS + 1,
+          f"KSP iterations {sim.ksp_history} {sim.correct_history}")
+    check(all(0.0 <= v < 0.1 for v in sim.norm_history),
+          f"current-consistency norms {sim.norm_history}")
+    check(charge <= CHARGE_TOL, "ecsimcorr does not conserve charge")
+
+
+def fill_kernel(geom, dev, card, ks=(96, 112)):
+    """Phase 3 for the ECSIM fill kernel: the drifted and migrated
+    32^3 x 50 ppc state at each K of ``ks`` with B at the slots ~0.2.
+    Returns the rows by K."""
+    from xpic_tpu_torch.convert import state_from_numpy
+    from xpic_tpu_torch.ops.binning import bin_state, drift_state, rebin
+    from xpic_tpu_torch.ops.ecsim_kernel import (
+        FILL_FLOPS_PER_SLOT,
+        ecsim_fill,
+        ecsim_fill_plain,
+    )
+    from xpic_tpu_torch.ops.gather_scatter import (
+        B_STAGGER,
+        cell_t,
+        gather_vector,
+    )
+
+    rng = np.random.default_rng(13)
+    shape = (3,) + geom.shape
+    Bf = np.zeros(shape)
+    Bf[2] = 0.2
+    Bf += 0.05 * rng.standard_normal(shape)
+    kw = dict(dt=geom.dt, **{k: KW[k] for k in ("q", "m", "mpw")})
+    rows = {}
+    for slots in ks:
+        *_, r, p, alive = bench_state(geom, PPC, VTH, seed=1)
+        Bt, _, _, sp = state_from_numpy(Bf, np.zeros(1), np.zeros(1), r, p,
+                                        alive, device=dev,
+                                        dtype=torch.float32)
+        st = rebin(drift_state(bin_state(sp, geom, slots), geom), geom)
+        t = cell_t(geom, st.r)
+        B_p = gather_vector(Bt, t, st.valid, geom, order=1, width=3,
+                            anchor=-1, stagger=B_STAGGER)
+        args = (t, st.p, B_p, st.valid)
+        L_k, I_k = ecsim_fill(*args, **kw)
+        L_p, I_p = ecsim_fill_plain(*args, **kw)
+        torch.cuda.synchronize()
+        errs = [float((k - q).abs().max()) for k, q in ((L_k, L_p),
+                                                        (I_k, I_p))]
+        rel = max(errs[0] / float(L_p.abs().max()),
+                  errs[1] / float(I_p.abs().max()))
+        G = geom.n_cells
+        n_valid = int(st.valid.sum())
+        # Read t, v, B_p (float32) and valid (a byte) once, write L and
+        # Islot once; the operations per live slot (an invalid slot adds
+        # nothing).
+        row = dict(max_abs_err=max(errs),
+                   ms=time_ms(lambda: ecsim_fill(*args, **kw)),
+                   plain_ms=time_ms(lambda: ecsim_fill_plain(*args, **kw)),
+                   **bound(4 * 9 * G * slots + G * slots
+                           + 4 * G * (1296 + 36),
+                           FILL_FLOPS_PER_SLOT * n_valid))
+        rows[slots] = row
+        log(f"[3 kernels] ecsim_fill K={slots} ({n_valid} live "
+            f"slots): max|d|/max |L|, |Islot| = {rel:.3e} (tol {FILL_TOL}) "
+            f"| {row['ms']:.4f} ms vs twin {row['plain_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}) | {card}")
+        check(np.isfinite(rel) and rel <= FILL_TOL,
+              f"ecsim_fill differs from its twin by {rel:.3e} at K={slots}")
+    return rows
+
+
 def segment_kernel(geom, dev, card):
     """Phase 3 for the segment-field kernel: the drifted 32^3 x 50 ppc
     state at K = 96 (the eccapfim run's K), random E and B, moves of up
@@ -769,9 +981,10 @@ def segment_kernel(geom, dev, card):
 
 def profile_paths(name, card, dev, fused_run):
     """``--profile``: two fused steps (phase 4's state) under
-    ``torch.profiler``, the phase-6 config for 8 steps and the phase-8
-    config for 6 steps through ``runtime.step_profile`` (per-phase and
-    per-diagnostic times, and a 2-step ``torch.profiler`` window)."""
+    ``torch.profiler``, the phase-6 config for 8 steps, the phase-8
+    config for 6 steps and the phase-10 config for 6 steps on each mass
+    route through ``runtime.step_profile`` (per-phase and per-diagnostic
+    times, and a 2-step ``torch.profiler`` window)."""
     from xpic_tpu_torch.config import Config
     from xpic_tpu_torch.runtime.step_profile import device_window, profile_run
     from xpic_tpu_torch.schemes import build_simulation
@@ -796,6 +1009,16 @@ def profile_paths(name, card, dev, fused_run):
     log(f"[profile] {SIDE}^3 x {PPC} ppc f32, eccapfim path | {name} "
         f"| {card}")
     log(f"[profile] {json.dumps(prof)}")
+
+    for mass in MASS_ROUTES:
+        with tempfile.TemporaryDirectory(prefix="xpic_smoke_") as work:
+            doc = ecsimcorr_config(os.path.join(work, "out"), SIDE, PPC, 6)
+            sim = build_simulation(Config.from_json(doc), device="cuda:0",
+                                   mass=mass)
+            prof = profile_run(sim)
+        log(f"[profile] {SIDE}^3 x {PPC} ppc f32, ecsimcorr path, {mass} "
+            f"route | {name} | {card}")
+        log(f"[profile] {json.dumps(prof)}")
 
 
 def replay_loads(E, B, B0, sp, geom, slots):

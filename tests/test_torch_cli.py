@@ -5,8 +5,8 @@ mt19937 particle load (``XPIC_RNG=reference``): 6^3 cells, 8 particles
 per cell, 4 steps, a uniform B0 of 0.2 along z, the field and density
 dumps every step.
 
-The port takes the matrix-free mass operator where the JAX float64 path
-assembles matL, and sums in other orders: the two agree to rounding, so
+Both packages assemble matL in float64, and the port sums in other
+orders: the two agree to rounding, so
 the tables (printed to 7 digits) are compared column by column within
 1e-10 of each column's scale (``xpic_tpu_torch.diagnostics.compare``:
 the largest magnitude, except for the cancelled energy differences and
@@ -163,7 +163,7 @@ def test_dtype_follows_xpic_x64(tmp_path, monkeypatch):
     assert sim.dtype == torch.float32 and sim.E.dtype == torch.float32
 
 
-@pytest.mark.parametrize("scheme", ["basic", "ecsimcorr"])
+@pytest.mark.parametrize("scheme", ["basic"])
 def test_unported_schemes_raise(tmp_path, scheme):
     cfg = Config.from_json(make_doc(tmp_path / "out", scheme))
     with pytest.raises(NotImplementedError, match=scheme):

@@ -5,9 +5,11 @@ The rebin kernels must match their twins bit for bit through the whole
 exchange at AT = 16, 32 and 128; the Chebyshev kernel to 1e-5 relative
 (nvcc contracts multiply-adds into FMAs, which round once); the mass
 apply to 1e-5 of max |Y| (its K-sums run in another order than the
-twin's), the slot gather to 2e-6 of max |E_p|, and the segment-field
+twin's), the slot gather to 2e-6 of max |E_p|, the segment-field
 gather to 1e-5 of max |E_p| and max |B_p| (FMAs, and the segment
-weights applied in another order).
+weights applied in another order), and the ECSIM fill to 1e-5 of
+max |L| and of max |Islot| (its slot sums run in slot order, the twin's
+in batched products).
 
     python -m pytest --noconftest -o addopts="" tests/test_torch_kernels.py -q
 """
@@ -21,7 +23,12 @@ from xpic_tpu_torch.config import Geometry
 from xpic_tpu_torch.convert import state_from_numpy
 from xpic_tpu_torch.ops import neighbor_rebin as NR
 from xpic_tpu_torch.ops.binning import bin_state, drift_state
-from xpic_tpu_torch.ops.ecsim_kernel import ecsim_gather, ecsim_gather_plain
+from xpic_tpu_torch.ops.ecsim_kernel import (
+    ecsim_fill,
+    ecsim_fill_plain,
+    ecsim_gather,
+    ecsim_gather_plain,
+)
 from xpic_tpu_torch.ops.implicit_esirkepov import gather_window_blocks
 from xpic_tpu_torch.ops.mass_kernel import (
     mass_apply_slots,
@@ -208,6 +215,57 @@ def test_segment_fields_kernel_matches_twin(dev, kp, shape):
     for g, r in zip(got, ref):
         assert g.shape == (G, kp, 3)
         assert float((g - r).abs().max()) <= 1e-5 * float(r.abs().max())
+
+
+def _fill_inputs(G, K, dev, seed, empty_cell=None):
+    """t, v, B_p [G, K, 3] (|b| ~ 0.2 at q/m = -1, dt = 1.5) and valid
+    [G, K] with 70 % live slots; every slot of ``empty_cell`` invalid."""
+    rng = np.random.default_rng(seed)
+    valid = rng.random((G, K)) < 0.7
+    if empty_cell is not None:
+        valid[empty_cell] = False
+
+    def f32(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    return (f32(rng.random((G, K, 3))),
+            f32(0.05 * rng.standard_normal((G, K, 3))),
+            f32(0.25 * rng.standard_normal((G, K, 3))),
+            torch.tensor(valid, device=dev))
+
+
+@pytest.mark.parametrize("K", [16, 80, 96, 112, 200])
+def test_ecsim_fill_kernel_matches_twin(dev, K):
+    """L and Islot within 1e-5 of their largest magnitudes, K past the
+    kernel's 32-slot chunk included; cell 3 has no live slot."""
+    t, v, B_p, valid = _fill_inputs(16 ** 3, K, dev, seed=K, empty_cell=3)
+    kw = dict(q=-1.0, m=1.0, mpw=0.02, dt=1.5)
+    before = kernels.LAUNCHES["ecsim_fill"]
+    L, Islot = ecsim_fill(t, v, B_p, valid, **kw)
+    L_p, Islot_p = ecsim_fill_plain(t, v, B_p, valid, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ecsim_fill"] == before + 1
+    assert L.shape == (16 ** 3, 3, 12, 3, 12)
+    assert Islot.shape == (16 ** 3, 3, 12)
+    assert float((L - L_p).abs().max()) <= 1e-5 * float(L_p.abs().max())
+    assert float((Islot - Islot_p).abs().max()) <= \
+        1e-5 * float(Islot_p.abs().max())
+    assert not bool(L[3].any()) and not bool(Islot[3].any())
+
+
+def test_ecsim_fill_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    t, v, B_p, valid = _fill_inputs(64, 16, dev, seed=1)
+    kw = dict(q=-1.0, m=1.0, mpw=0.02, dt=1.5)
+    with pytest.raises(TypeError):
+        ecsim_fill(t.double(), v.double(), B_p.double(), valid, **kw)
+    with pytest.raises(ValueError):  # valid not bool
+        ecsim_fill(t, v, B_p, valid.float(), **kw)
+    with pytest.raises(ValueError):  # B_p of another K
+        ecsim_fill(t, v, B_p[:, :8].contiguous(), valid, **kw)
+    big = torch.zeros((4, 513, 3), device=dev)
+    with pytest.raises(ValueError):  # K past 512
+        ecsim_fill(big, big, big, torch.ones((4, 513), dtype=torch.bool,
+                                             device=dev), **kw)
 
 
 def test_segment_fields_wrapper_rejects_what_the_kernel_does_not_take(dev):

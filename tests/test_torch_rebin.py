@@ -77,12 +77,12 @@ def test_bin_unbin_and_drift_match(dtype):
 
 @pytest.fixture(scope="module")
 def storm_steps():
-    """Three drift + neighbor-rebin steps of a thermal state through the
+    """Two drift + neighbor-rebin steps of a thermal state through the
     JAX exchange (interpret mode), with each step's input."""
     r, p = _species(GEOM, 0.05, seed=3)
     st = _jax_binned(r, p, GEOM, 40)
     steps = []
-    for _ in range(3):
+    for _ in range(2):
         st = JB._drift_impl(st, GEOM)
         ok, _, _ = JNR.neighbor_guard_stats(st, GEOM)
         out, load = JNR.rebin_neighbor(st, GEOM, interpret=True)

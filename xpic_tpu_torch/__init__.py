@@ -1,4 +1,5 @@
-"""xpic_tpu_torch — the PyTorch port of xpic_tpu's f32 ECSIM timestep.
+"""xpic_tpu_torch — the PyTorch port of xpic_tpu: the ECSIM, ecsimcorr and
+eccapfim schemes behind ``python -m xpic_tpu_torch cfg.json``.
 
 Module names mirror the JAX package ``xpic_tpu`` so each function's
 counterpart is found by path.  The port takes device and dtype from its

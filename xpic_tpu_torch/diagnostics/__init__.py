@@ -1,8 +1,8 @@
 """Diagnostics: tables, field dumps, moments
 (counterpart of ``xpic_tpu/diagnostics/__init__.py``).
 
-``default_diagnostics`` auto-appends Energy, ChargeConservation and
-MomentumConservation like the reference
+``default_diagnostics`` auto-appends Energy (EcsimcorrEnergy under
+ecsimcorr), ChargeConservation and MomentumConservation like the reference
 (src/interfaces/simulation.cpp:41-56); ``build_diagnostics`` dispatches
 the config ``Diagnostics`` section.  The port has FieldView and
 DistributionMoment; VelocityDistribution, LogView and the
@@ -20,10 +20,12 @@ NOT_PORTED = ("VelocityDistribution", "LogView")
 
 def default_diagnostics(simulation) -> list:
     from .charge_conservation import ChargeConservation
-    from .energy import Energy
+    from .energy import EcsimcorrEnergy, Energy
     from .momentum_conservation import MomentumConservation
 
-    return [Energy(simulation), ChargeConservation(simulation),
+    energy = (EcsimcorrEnergy if simulation.scheme_name == "ecsimcorr"
+              else Energy)
+    return [energy(simulation), ChargeConservation(simulation),
             MomentumConservation(simulation)]
 
 

@@ -7,6 +7,7 @@ kinetic energy is 0.5*m*(n/Np)*sum p^2.  The conservation table lists
 per-step deltas and the closing dE+dB+dK column.  The port has no step
 preset with a source or sink term yet (InjectParticles, RemoveParticles
 and FieldsDamping are not ported), so the table has no such columns.
+The ecsimcorr subclass appends the per-species work-bookkeeping columns.
 """
 
 from __future__ import annotations
@@ -138,3 +139,33 @@ class Energy:
     def finalize(self) -> None:
         self.energy.finalize()
         self.energy_cons.finalize()
+
+
+class EcsimcorrEnergy(Energy):
+    """Adds the ecsimcorr work-bookkeeping columns
+    (src/impls/ecsimcorr/simulation.cpp:170-199): per species the
+    renormalization's energy change CWD, the predicted and corrected
+    work defects PWD and LdK, and the total work defect WD."""
+
+    def fill_energy_cons(self, t: int) -> None:
+        super().fill_energy_cons(t)
+        tb = self.energy_cons
+        sim = self.simulation
+        dt = sim.geom.dt
+        off = 3
+        corr_w_total = 0.0
+        for sp in sim.species:
+            name = sp.params.sort_name
+            stats = sp.corr_stats
+            cwd = stats["lambda_dK"]
+            pwd = stats["pred_dK"] - dt * stats["pred_w"]
+            ldk = stats["corr_dK"] - dt * stats["corr_w"]
+            corr_w_total += stats["corr_w"]
+            off += 1
+            tb.add(13, "CWD_" + name, cwd, pos=off)
+            off += 1
+            tb.add(13, "PWD_" + name, pwd, pos=off)
+            off += 1
+            tb.add(13, "LdK_" + name, ldk, pos=off)
+            off += 1
+        tb.add(13, "WD", self._dK - dt * corr_w_total)

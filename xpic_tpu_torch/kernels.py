@@ -50,6 +50,9 @@ SIGNATURES = {
     "slot_gather": (_P, _P, _P, _I, _I, _P),
     # Eblk, Bblk, t0, tn, E_p, B_p, G, K, row stride of t0/tn, stream
     "segment_fields": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _P),
+    # t, v, B_p, valid, L, Islot, G, K, (dt/2) q/m, (dt^2/2) mpw q^2/m,
+    # q mpw, stream
+    "ecsim_fill": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P),
 }
 
 LAUNCHES = {name: 0 for name in SIGNATURES}

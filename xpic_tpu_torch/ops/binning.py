@@ -218,3 +218,10 @@ def rebin_overflow(st: BinnedState, geom: Geometry) -> torch.Tensor:
     ids = state_cell_ids(st, geom).reshape(-1)
     counts = torch.bincount(ids, minlength=G + 1)
     return torch.sum(torch.clamp(counts[:G] - K, min=0))
+
+
+def kinetic_energy_state(st: BinnedState, m_mpw: float) -> torch.Tensor:
+    """0.5 m mpw sum |p|^2 over the live slots (a 0-d tensor)."""
+    w = torch.sum(st.p * st.p, dim=-1)
+    return 0.5 * m_mpw * torch.sum(torch.where(st.valid, w,
+                                               torch.zeros_like(w)))

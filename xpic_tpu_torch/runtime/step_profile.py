@@ -8,7 +8,12 @@ one JSON object:
 
 * ``phases_ms``: the median time of each ECSIM phase over the steps before
   the window, every phase closed by ``torch.cuda.synchronize()``
-  (``first_push`` includes ``fill_ecsim_current``); ``step_ms`` their sum;
+  (``first_push`` includes ``fill_ecsim_current``; ecsimcorr adds
+  ``correct_fields``); ``step_ms`` their sum;
+* ``parts_ms``: the median time a step of the functions inside those
+  phases that ``ECSIM_PARTS`` names (each call closed by a
+  synchronisation): ecsimcorr's Esirkepov deposits, and the assembled
+  route's fill (the ``ecsim_fill`` kernel on the card);
 * ``diagnostics_ms``: the median time of each diagnostic's ``diagnose``
   per diagnose step, synchronised the same way;
 * ``window``: the last two steps, each under ``torch.profiler``
@@ -43,6 +48,13 @@ import torch
 
 PHASES = ("clear_sources", "first_push", "fill_ecsim_current",
           "advance_fields", "second_push", "final_update")
+ECSIMCORR_PHASES = PHASES + ("correct_fields",)
+# ECSIM-family part -> (module, function names) timed for it inside the
+# phases.
+ECSIM_PARTS = {
+    "esirkepov_current": ("schemes.ecsimcorr", ("esirkepov_current",)),
+    "ecsim_fill": ("parallel.step", ("ecsim_fill",)),
+}
 ECCAPFIM_PHASES = ("window_blocks", "segment_fields", "one_segment",
                    "deposit", "anderson", "migration", "calc_other")
 # eccapfim phase -> (module, function names) timed for it; the module
@@ -136,12 +148,17 @@ def profile_run(sim) -> dict:
         raise ValueError(f"{nt} steps leave none before a {WINDOW}-step "
                          f"window")
     sim.initialize()
+    phase_names = (ECSIMCORR_PHASES if sim.scheme_name == "ecsimcorr"
+                   else PHASES)
     phase_t = defaultdict(list)
     diag_t = defaultdict(list)
-    for name in PHASES:
+    for name in phase_names:
         setattr(sim, name, _timed(getattr(sim, name), sync, phase_t[name]))
     for diag in sim.diagnostics:
         diag.diagnose = _timed(diag.diagnose, sync, diag_t[_diag_name(diag)])
+    acc: dict = {}
+    parts_t = defaultdict(list)
+    patched = _patch(ECSIM_PARTS, sync, acc)
 
     def step(t):  # one iteration of Simulation.calculate's loop
         for command in sim.step_presets:
@@ -152,10 +169,16 @@ def profile_run(sim) -> dict:
         for diag in sim.diagnostics:
             diag.diagnose(t)
 
-    for t in range(1, nt - WINDOW + 1):
-        step(t)
-        diagnose(t)
-    for name in PHASES:
+    try:
+        for t in range(1, nt - WINDOW + 1):
+            acc.clear()
+            step(t)
+            for part in ECSIM_PARTS:
+                parts_t[part].append(acc.get(part, 0.0))
+            diagnose(t)
+    finally:
+        _unpatch(patched)
+    for name in phase_names:
         delattr(sim, name)
 
     steps = range(nt - WINDOW + 1, nt + 1)
@@ -164,11 +187,18 @@ def profile_run(sim) -> dict:
     sim.finalize()
 
     phases = {n: statistics.median(v) for n, v in phase_t.items()}
+    extra = {}
+    if sim.scheme_name == "ecsimcorr":
+        extra = {"correct_ksp_iters": sim.correct_ksp_iters,
+                 "consistency_norm": sim.current_consistency_norm}
     return {
+        **extra,
         "steps_timed": nt - WINDOW,
         "phases_ms": phases,
         "step_ms": sum(v for n, v in phases.items()
                        if n != "fill_ecsim_current"),
+        "parts_ms": {n: statistics.median(v) for n, v in parts_t.items()},
+        "mass": sim.mass,
         "diagnostics_ms": {n: statistics.median(v)
                            for n, v in diag_t.items()},
         "window": win,
@@ -188,9 +218,29 @@ def _summed(fn, sync, acc: dict, key: str):
     return run
 
 
-def _profile_eccapfim(sim) -> dict:
+def _patch(hooks: dict, sync, acc: dict) -> list:
+    """Replace each function that ``hooks`` names (key -> (module, names))
+    in its module by a :func:`_summed` version adding to acc[key];
+    returns what :func:`_unpatch` restores."""
     import importlib
 
+    patched = []
+    for key, (mod, names) in hooks.items():
+        module = importlib.import_module(f"{__package__.rsplit('.', 1)[0]}"
+                                         f".{mod}")
+        for name in names:
+            fn = getattr(module, name)
+            patched.append((module, name, fn))
+            setattr(module, name, _summed(fn, sync, acc, key))
+    return patched
+
+
+def _unpatch(patched: list) -> None:
+    for module, name, fn in patched:
+        setattr(module, name, fn)
+
+
+def _profile_eccapfim(sim) -> dict:
     sync = _sync(sim.device)
     nt = sim.geom.nt
     if nt <= WINDOW:
@@ -198,14 +248,7 @@ def _profile_eccapfim(sim) -> dict:
                          f"window")
     sim.initialize()
     acc: dict = {}
-    patched = []
-    for phase, (mod, names) in _ECCAPFIM_HOOKS.items():
-        module = importlib.import_module(f"{__package__.rsplit('.', 1)[0]}"
-                                         f".{mod}")
-        for name in names:
-            fn = getattr(module, name)
-            patched.append((module, name, fn))
-            setattr(module, name, _summed(fn, sync, acc, phase))
+    patched = _patch(_ECCAPFIM_HOOKS, sync, acc)
     phase_t, step_t, diag_t = defaultdict(list), [], defaultdict(list)
 
     def step(t):  # one iteration of Simulation.calculate's loop
@@ -229,8 +272,7 @@ def _profile_eccapfim(sim) -> dict:
             for diag in sim.diagnostics:
                 _timed(diag.diagnose, sync, diag_t[_diag_name(diag)])(t)
     finally:
-        for module, name, fn in patched:
-            setattr(module, name, fn)
+        _unpatch(patched)
 
     steps = range(nt - WINDOW + 1, nt + 1)
     win = device_window(

@@ -7,7 +7,9 @@ https://doi.org/10.1016/j.jcp.2017.01.002.  One timestep
 
 1. ``first_push``     : r += v dt (no fields), then the checked migration.
 2. ``fill``           : per species, gather B (s1) -> implicit current
-                        I_p into currI and the matrix-free mass operands.
+                        I_p into currI and the species' mass
+                        contribution (matL blocks, or the matrix-free
+                        operands).
 3. ``advance_fields`` : solve (matL + matM) E^{n+1/2} = 2 E^n
                         - dt currI + dt curl-(B^n - B0).
 4. ``second_push``    : gather E^{n+1/2} (s1) at the new positions, Boris
@@ -16,12 +18,13 @@ https://doi.org/10.1016/j.jcp.2017.01.002.  One timestep
                         B^{n+1} = B^n - dt curl+(E^{n+1/2}).
 
 The phases are those of the fused step (``parallel/step.py``); this
-class runs them one by one for the command and diagnostic cadence.  The port takes
-the matrix-free mass operator in every dtype (the JAX package assembles
-matL in float64; ``tests/test_mass_free.py`` holds the two equal).  Host
-synchronisations, as in the JAX scheme: one per Krylov iteration, the
-iteration count and convergence flag per solve, the rebin guard and the
-capacity check per species and step.
+class runs them one by one for the command and diagnostic cadence, on
+the mass route fixed when the simulation was built (``self.mass``):
+float64 assembles matL as the JAX package does, float32 is matrix-free
+unless ``XPIC_MASS=blocks``.  Host synchronisations, as in the JAX
+scheme: one per Krylov iteration, the iteration count and convergence
+flag per solve, the rebin guard and the capacity check per species and
+step.
 
 Solver budget: rtol=atol=1e-7 (1e-5 in float32), maxit=100
 (ecsim/simulation.h:15-18); non-convergence raises.
@@ -40,7 +43,9 @@ from ..ops.stencil import curl_positive
 from ..parallel.step import (
     accumulate_mass,
     advance_phase,
+    empty_mass,
     fill_phase,
+    mass_route,
     push_phase,
 )
 from .base import Simulation
@@ -58,6 +63,11 @@ _TOL_OVERRIDE = (
 
 class EcsimSimulation(Simulation):
     scheme_name = "ecsim"
+
+    def __init__(self, cfg, device: torch.device, dtype: torch.dtype,
+                 mass: str | None = None):
+        super().__init__(cfg, device, dtype)
+        self.mass = mass_route(dtype, mass)
 
     def initialize_implementation(self) -> None:
         self.Ep = torch.zeros_like(self.E)
@@ -85,16 +95,18 @@ class EcsimSimulation(Simulation):
             st = sp.state
             t = cell_t(self.geom, st.r)
             currI_s, mass, B_p = fill_phase(self.B, st, t, self.geom,
-                                            q=pr.q, m=pr.m, mpw=pr.n_Np)
+                                            q=pr.q, m=pr.m, mpw=pr.n_Np,
+                                            mass=self.mass)
             sp.currI = currI_s
             sp._cache = (t, B_p)
             self.currI = self.currI + currI_s
             self._mass = accumulate_mass(self._mass, mass)
         if self._mass is None:
-            self._mass = ((), torch.zeros((), dtype=self.dtype,
-                                          device=self.device))
+            self._mass = empty_mass(self.geom, self.dtype, self.device,
+                                    self.mass)
 
-    def advance_fields(self) -> None:
+    def _predict(self):
+        """The predict solve into ``self.Ep``; returns its result."""
         f32 = self.E.dtype == torch.float32
         tol = 1e-5 if f32 else ATOL
         if _TOL_OVERRIDE is not None and not f32:
@@ -109,6 +121,10 @@ class EcsimSimulation(Simulation):
                                  maxit=MAXIT, prev=prev)
         self.Ep = sol.x
         self._adv_prev = (self.Ep, rhs)
+        return sol
+
+    def advance_fields(self) -> None:
+        sol = self._predict()
         self._ksp_iters = sol.iterations
         self.ksp_history.append(self._ksp_iters)
         if not sol.converged:
