@@ -8,8 +8,9 @@ the main paths, runs 10 fused ECSIM steps at 32^3 cells x 50 particles
 per cell in float32 (the flagship workload of ``bench.py``), runs the
 config-driven path (``python -m xpic_tpu_torch cfg.json``) at the same
 size for an ECSIM, an eccapfim and an ecsimcorr config (the last on both
-mass routes), and checks the card's results against the CPU's at a
-smaller size.  Phases:
+mass routes), checks the card's results against the CPU's at a smaller
+size, and runs the calibration path (the primitive-rate probe and the
+roofline calibration).  Phases:
 
 1. device: card name and power limit, the IEEE float32 pins;
 2. build: one nvcc per source for sm_90a, with ptxas's register and
@@ -17,7 +18,11 @@ smaller size.  Phases:
 3. kernels against twins: the rebin exchange bitwise at AT = 8, 16, 32,
    64 and 128; the Chebyshev apply to 1e-5 relative; the mass apply at
    K = 80 and 96 to 1e-5 of max |Y|; the slot gather at K = 80 to 2e-6
-   of max |E_p|; times by CUDA events beside each kernel's bound;
+   of max |E_p|; each kernel's time back to back (R launches between two
+   CUDA events, over R, queued behind a sleep kernel so that no host
+   launch gap is in it: ``ms``) and per call (one wrapper call between
+   two events, the host's launch gap in: ``call_ms``), beside its twin's
+   time and its bound;
 4. fused path: 10 steps through the kernels (every launch count grows;
    the migration loses no particle beyond genuine K overflow);
 5. card against CPU: 2 fused steps at 16^3 x 50 ppc;
@@ -45,7 +50,14 @@ smaller size.  Phases:
     two routes' tables within 1e-4 of each other;
 11. the ecsimcorr config at 8^3 x 20 ppc, 2 steps, on the ``blocks``
     route, on the card and on the CPU: tables within 1e-4, equal predict
-    and correct KSP.
+    and correct KSP;
+12. the calibration path: ``python -m xpic_tpu_torch.benchmarks.
+    profile_prims`` and ``.profile_roofcal`` through their ``main`` at
+    their defaults (G = 32768), their JSON lines printed; the ``prims``
+    kernel launched; then each of its six probes against its twin at
+    [32768, 8, 128]: bitwise for copy, roll8 and select16, within 1e-5 of
+    max |out| for fma16, fma64 and reduce16; ``out.copy_(x)`` timed as
+    the copy's library yardstick.
 
 Phase 3 also holds the segment-field kernel against its twin on the
 drifted 32^3 x 50 ppc state (K = 96) with moves of up to 0.9 cell a
@@ -62,8 +74,11 @@ route through ``xpic_tpu_torch.runtime.step_profile``.
 Exits non-zero on any failure, and without CUDA.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel
 with its launches on the fused path, the ECSIM config-driven path, the
-eccapfim path and the two ecsimcorr runs, its error against its twin,
-its time, its twin's and its bound.
+eccapfim path, the two ecsimcorr runs and the calibration path, its
+error against its twin, its times (``ms``, ``call_ms``), its twin's and
+its bound.  The ``prims`` row's times are the copy probe's (with
+``copy_``'s as ``library_ms``), its error the largest of the six, and
+``probes`` holds each probe's.
 """
 
 from __future__ import annotations
@@ -71,7 +86,6 @@ from __future__ import annotations
 import json
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -83,7 +97,7 @@ SIDE, PPC, VTH, STEPS = 32, 50, 0.014, 10
 KW = dict(q=-1.0, m=1.0, mpw=1.0 / PPC, maxit=100)
 CHEB_TOL, FIELD_TOL, PARTICLE_TOL = 1e-5, 1e-4, 1e-5
 MASS_TOL, GATHER_TOL, TABLE_TOL, ENERGY_TOL = 1e-5, 2e-6, 1e-4, 1e-4
-SEGMENT_TOL, FILL_TOL, CHARGE_TOL = 1e-5, 1e-5, 1e-5
+SEGMENT_TOL, FILL_TOL, CHARGE_TOL, PRIM_TOL = 1e-5, 1e-5, 1e-5, 1e-5
 CLI_STEPS = 5
 FIM_STEPS = CORR_STEPS = 3  # timed, after one warm-up step
 MASS_ROUTES = ("free", "blocks")
@@ -106,7 +120,12 @@ KERNELS = {
                        "xpic_tpu/ops/pallas_implicit.py:115"),
     "ecsim_fill": ("xpic_tpu_torch/csrc/ecsim_fill.cu",
                    "xpic_tpu/ops/pallas_ecsim.py:72"),
+    "prims": ("xpic_tpu_torch/csrc/prims.cu",
+              "benchmarks/profile_pallas_prims.py:27"),
 }
+# Launches a timed call makes: a K1 apply is one launch an iteration of
+# the degree-12 Chebyshev; every other wrapper launches once.
+CALL_LAUNCHES = {"cheb_step": 12}
 # The kernels each path runs.
 ECCAPFIM_KERNELS = ("cheb_step", "rebin_extract", "rebin_place",
                     "segment_fields")
@@ -130,16 +149,18 @@ def check(cond, msg: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+def time_ms(fn) -> float:
+    """The device time of one call of ``fn``: R calls back to back between
+    two CUDA events, over R, with no host launch gap
+    (``xpic_tpu_torch.benchmarks.device_ms``)."""
+    from xpic_tpu_torch.benchmarks import device_ms
+
+    return device_ms(fn, torch.device("cuda", 0))
 
 
-def time_ms(fn, reps: int = 20) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after a warm-up."""
+def call_ms(fn, reps: int = 20) -> float:
+    """Median of ``reps`` CUDA-event timings of one call of ``fn`` after a
+    warm-up: the host's launch gap is in it."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -152,6 +173,11 @@ def time_ms(fn, reps: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_times(fn) -> dict:
+    """A kernel row's times: back to back (``ms``) and per call."""
+    return dict(ms=time_ms(fn), call_ms=call_ms(fn))
 
 
 def bound(n_bytes: float, n_flops: float) -> dict:
@@ -185,6 +211,7 @@ def main() -> None:
         print(f"chip_smoke: the xpic_tpu_torch package is missing ({exc})",
               file=sys.stderr)
         sys.exit(2)
+    from xpic_tpu_torch.benchmarks import card_label
     from xpic_tpu_torch.config import Geometry
     from xpic_tpu_torch.convert import state_from_numpy, to_numpy
     from xpic_tpu_torch.ops import neighbor_rebin as NR
@@ -197,7 +224,7 @@ def main() -> None:
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
-    card = card_line()
+    card = card_label(dev)
     log(f"[1 device] {name} | nvidia-smi: {card} | torch {torch.__version__}"
         f" cuda {torch.version.cuda}")
     check(torch.backends.cuda.matmul.allow_tf32 is False, "matmul TF32 on")
@@ -260,12 +287,12 @@ def main() -> None:
             max_abs_err=max(float((o_k - o_p).abs().max()),
                             float((u_k - u_p).abs().max()),
                             float((d_k - d_p).abs().max())),
-            ms=time_ms(lambda: NR.rebin_extract(buf, geom, 0)),
+            **kernel_times(lambda: NR.rebin_extract(buf, geom, 0)),
             plain_ms=time_ms(lambda: NR.extract_plain(buf, geom, 0)),
             **bound(pass_bytes, 0))
         report["rebin_place"] = dict(
             max_abs_err=float((pl_k - pl_p).abs().max()),
-            ms=time_ms(lambda: NR.rebin_place(o_k, u_k, d_k, geom, 0)),
+            **kernel_times(lambda: NR.rebin_place(o_k, u_k, d_k, geom, 0)),
             plain_ms=time_ms(lambda: NR.place_plain(o_k, u_k, d_k, geom, 0)),
             **bound(pass_bytes, 0))
         whole_ms = time_ms(lambda: NR.rebin_neighbor(st, geom))
@@ -292,7 +319,7 @@ def main() -> None:
     # does ~40 float32 operations per field element (cheb_step.cu).
     report["cheb_step"] = dict(
         max_abs_err=cheb_err,
-        ms=time_ms(lambda: cheb_matM_inv(rhs, shift, **cheb)),
+        **kernel_times(lambda: cheb_matM_inv(rhs, shift, **cheb)),
         plain_ms=time_ms(lambda: cheb_matM_inv_plain(rhs, shift, **cheb)),
         **bound(8 * rhs.numel(), 12 * 40 * rhs.numel()))
     log(f"[3 kernels] cheb degree 12 on {tuple(rhs.shape)}: max|d|/max|x| "
@@ -512,6 +539,9 @@ def main() -> None:
               "ecsimcorr KSP iterations differ between card and CPU")
     del os.environ["XPIC_MASS"]
 
+    # -- 12. the calibration path ------------------------------------------
+    cal_launches, report["prims"] = calibration_path(dev, card)
+
     if "--profile" in sys.argv[1:]:
         profile_paths(name, card, dev, lambda: ecsim_multi_step(
             E, B, B0, sp, geom, slots, n_steps=2, **KW))
@@ -519,23 +549,104 @@ def main() -> None:
     rows = []
     for kname, (src, repl) in KERNELS.items():
         own = {"segment_fields": fim_launches,
-               "ecsim_fill": corr_launches["blocks"]}.get(kname, launches)
+               "ecsim_fill": corr_launches["blocks"],
+               "prims": cal_launches}.get(kname, launches)
         row = dict(name=kname, route="cuda", source=src, replaces=repl,
                    launches=own[kname], launches_fused=launches[kname],
                    launches_cli=cli_launches[kname],
                    launches_eccapfim=fim_launches[kname],
                    launches_ecsimcorr_free=corr_launches["free"][kname],
                    launches_ecsimcorr_blocks=corr_launches["blocks"][kname],
-                   library_ms=None, **report[kname])
+                   launches_probe=cal_launches[kname], library_ms=None)
+        row.update(report[kname])
         if kname == "rebin_place":
             row["also_replaces"] = ["xpic_tpu/ops/neighbor_rebin.py:496",
                                     "xpic_tpu/ops/neighbor_rebin.py:525"]
+        # What the kernel loses against its bound over every path: timed
+        # calls x (ms - bound_ms).
+        calls = sum(v for k, v in row.items()
+                    if k.startswith("launches_")) / CALL_LAUNCHES.get(kname, 1)
+        row["excess_ms"] = calls * (row["ms"] - row["bound_ms"])
         rows.append(row)
+    order = sorted(rows, key=lambda r: -r["excess_ms"])
+    log("redesign order, timed calls x (ms - bound) over every path: "
+        + ", ".join(f"{r['name']} {r['excess_ms']:.3f} ms" for r in order))
     log(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def calibration_path(dev, card):
+    """Phase 12: the calibration path through its two entry points (the
+    launch counts set to 0 just before), then each probe of the ``prims``
+    kernel against its twin at [32768, 8, 128].  Returns the path's
+    launches and the ``prims`` row: the copy probe's times, ``copy_``'s
+    as ``library_ms``, the largest error of the six and every probe's
+    numbers under ``probes``."""
+    import contextlib
+    import io
+
+    from xpic_tpu_torch import kernels
+    from xpic_tpu_torch.benchmarks import prims as P
+    from xpic_tpu_torch.benchmarks import profile_prims, profile_roofcal
+
+    lines = {}
+    kernels.reset_counts()
+    for script in (profile_prims, profile_roofcal):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = script.main([])
+        check(rc == 0, f"{script.__name__} returned {rc}")
+        lines[script] = out.getvalue().strip().splitlines()[-1]
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    for script, line in lines.items():
+        log(f"[12 calibration] python -m {script.__name__} | {card}")
+        print(line, flush=True)
+    probe = json.loads(lines[profile_prims])
+    check(launches["prims"] > 0
+          and not any(n for k, n in launches.items() if k != "prims"),
+          f"the calibration path's launches {launches}")
+
+    x = profile_prims.make_input(profile_prims.CELLS, dev)
+    n_bytes = 2 * 4 * x.numel()
+    probes = {}
+    for name in P.PRIMS:
+        got, ref = P.prim(x, name), P.prim_plain(x, name)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        same = bool(torch.equal(got, ref))
+        del got, ref
+        row = probes[name] = dict(
+            max_abs_err=err, ms=probe[name + "_ms"],
+            call_ms=call_ms(lambda: P.prim(x, name)),
+            plain_ms=time_ms(lambda: P.prim_plain(x, name)),
+            **bound(n_bytes, P.FLOPS_PER_ELEMENT[name] * x.numel()))
+        tol = "bitwise" if name in P.BITWISE else f"tol {PRIM_TOL}"
+        log(f"[12 calibration] prims {name} {tuple(x.shape)}: max|d|/max = "
+            f"{rel:.3e} (bitwise {same}; {tol}) | {row['ms']:.4f} ms "
+            f"(per call {row['call_ms']:.4f}) vs twin {row['plain_ms']:.4f}"
+            f" ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}) | "
+            f"{card}")
+        check(same if name in P.BITWISE else rel <= PRIM_TOL,
+              f"prims {name} differs from its twin by {rel:.3e}")
+    # copy_ against the copy probe, in turns, for the spread of both
+    out = torch.empty_like(x)
+    turns = {"copy_": [], "probe": []}
+    for _ in range(3):
+        turns["probe"].append(time_ms(lambda: P.prim(x, "copy")))
+        turns["copy_"].append(time_ms(lambda: out.copy_(x)))
+    log(f"[12 calibration] in turns, ms: copy_ {turns['copy_']} copy probe "
+        f"{turns['probe']} | {card}")
+    copy = probes["copy"]
+    return launches, dict(
+        max_abs_err=max(p["max_abs_err"] for p in probes.values()),
+        ms=copy["ms"], call_ms=copy["call_ms"], plain_ms=copy["plain_ms"],
+        **bound(n_bytes, max(P.FLOPS_PER_ELEMENT.values()) * x.numel()),
+        library_ms=statistics.median(turns["copy_"]), probes=probes)
 
 
 def slot_kernels(geom, dev, card):
@@ -588,7 +699,7 @@ def slot_kernels(geom, dev, card):
         # Read: 7 operand channels (the 8th is zero and never read) and
         # xg; written: Y.  ~140 float32 operations per live slot.
         row = dict(max_abs_err=err,
-                   ms=time_ms(lambda: mass_apply_slots(xg, packed)),
+                   **kernel_times(lambda: mass_apply_slots(xg, packed)),
                    plain_ms=time_ms(lambda: mass_apply_slots_plain(xg,
                                                                    packed)),
                    **bound(4 * G * (7 * slots + 2 * 36), 140 * n_valid))
@@ -610,7 +721,7 @@ def slot_kernels(geom, dev, card):
         rel = err / float(E_p.abs().max())
         # Read t and Fg, write E_p; ~75 float32 operations per live slot.
         report["slot_gather"] = row = dict(
-            max_abs_err=err, ms=time_ms(lambda: ecsim_gather(t, Fg)),
+            max_abs_err=err, **kernel_times(lambda: ecsim_gather(t, Fg)),
             plain_ms=time_ms(lambda: ecsim_gather_plain(t, Fg)),
             **bound(4 * (2 * t.numel() + Fg.numel()), 75 * n_valid))
         log(f"[3 kernels] slot_gather K={slots}: max|d|/max|E_p| = "
@@ -902,7 +1013,7 @@ def fill_kernel(geom, dev, card, ks=(96, 112)):
         # Islot once; the operations per live slot (an invalid slot adds
         # nothing).
         row = dict(max_abs_err=max(errs),
-                   ms=time_ms(lambda: ecsim_fill(*args, **kw)),
+                   **kernel_times(lambda: ecsim_fill(*args, **kw)),
                    plain_ms=time_ms(lambda: ecsim_fill_plain(*args, **kw)),
                    **bound(4 * 9 * G * slots + G * slots
                            + 4 * G * (1296 + 36),
@@ -961,7 +1072,8 @@ def segment_kernel(geom, dev, card):
         segs = live_segments(a, b)
         # Read the two windows and t0, tn once; write E_p and B_p.
         row = dict(max_abs_err=max(errs),
-                   ms=time_ms(lambda: segment_fields(Eblk, Bblk, a, b)),
+                   **kernel_times(lambda: segment_fields(Eblk, Bblk, a,
+                                                         b)),
                    plain_ms=time_ms(lambda: segment_fields_plain(
                        Eblk, Bblk, a, b)),
                    **bound(4 * (2 * G * 648 + 4 * G * kp * 3),

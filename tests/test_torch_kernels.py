@@ -9,7 +9,9 @@ twin's), the slot gather to 2e-6 of max |E_p|, the segment-field
 gather to 1e-5 of max |E_p| and max |B_p| (FMAs, and the segment
 weights applied in another order), and the ECSIM fill to 1e-5 of
 max |L| and of max |Islot| (its slot sums run in slot order, the twin's
-in batched products).
+in batched products).  The primitive-rate probes match their twins
+bitwise for copy, roll8 and select16, and within 1e-5 of max |out| for
+fma16, fma64 (FMA contraction) and reduce16 (another summation order).
 
     python -m pytest --noconftest -o addopts="" tests/test_torch_kernels.py -q
 """
@@ -19,6 +21,8 @@ import pytest
 import torch
 
 from xpic_tpu_torch import kernels
+from xpic_tpu_torch.benchmarks.prims import BITWISE, PRIMS, prim, prim_plain
+from xpic_tpu_torch.benchmarks.profile_prims import make_input
 from xpic_tpu_torch.config import Geometry
 from xpic_tpu_torch.convert import state_from_numpy
 from xpic_tpu_torch.ops import neighbor_rebin as NR
@@ -283,3 +287,33 @@ def test_segment_fields_wrapper_rejects_what_the_kernel_does_not_take(dev):
         segment_fields(blk, blk, t[:, ::2], t[:, ::2])
     with pytest.raises(ValueError):  # different row strides
         segment_fields(blk, blk, t[:, :8], t[:, :8].contiguous())
+
+
+@pytest.mark.parametrize("name", PRIMS)
+def test_prims_kernel_matches_twin(dev, name):
+    x = make_input(512, dev, seed=1)
+    before = kernels.LAUNCHES["prims"]
+    got = prim(x, name)
+    ref = prim_plain(x, name)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["prims"] == before + 1
+    assert got.shape == ref.shape == (512, 8, 128)
+    if name in BITWISE:
+        assert torch.equal(got, ref)
+    else:
+        assert float((got - ref).abs().max()) <= \
+            1e-5 * float(ref.abs().max())
+
+
+def test_prims_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    x = make_input(4, dev)
+    with pytest.raises(TypeError):
+        prim(x.double(), "copy")
+    with pytest.raises(ValueError):  # 64 columns
+        prim(x[:, :, :64].contiguous(), "copy")
+    with pytest.raises(ValueError):  # not contiguous
+        prim(x.transpose(0, 1).contiguous().transpose(0, 1), "copy")
+    with pytest.raises(ValueError):  # 4 bytes off a float4 boundary
+        prim(x.reshape(-1)[1:1 + 3 * 1024].view(3, 8, 128), "copy")
+    with pytest.raises(ValueError):
+        prim(x, "fma32")

@@ -1,0 +1,140 @@
+"""The calibration path of the PyTorch port against the JAX package's.
+
+Each plain twin of the primitive-rate probes (``xpic_tpu_torch.benchmarks
+.prims``) is held against the Pallas probe kernel of
+``benchmarks/profile_pallas_prims.py`` run in interpret mode on the same
+numpy input (seed 0, uniform on [0, 16), G = 8 cells in blocks of 4):
+bitwise for copy, roll8 and select16 (adds in the same order, and
+selects), within 1e-5 of max |out| for fma16, fma64 and reduce16 (XLA
+and PyTorch round the multiply-add chains and sum the rows in other
+orders).  That script runs its whole benchmark when imported, so its six
+``k_*`` functions are read with ``ast`` and executed on their own.
+
+The port's two entry points print the JAX scripts' keys (read with
+``ast`` from their ``res[...]`` assignments) plus ``device`` (and, for
+the roofline calibration, ``note``); without CUDA they exit non-zero
+unless asked for the CPU.
+"""
+
+import ast
+import json
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from xpic_tpu_torch import kernels
+from xpic_tpu_torch.benchmarks import prims as P
+from xpic_tpu_torch.benchmarks import profile_prims, profile_roofcal
+
+REPO = Path(__file__).resolve().parent.parent
+JAX_PRIMS = REPO / "benchmarks" / "profile_pallas_prims.py"
+JAX_ROOFCAL = REPO / "benchmarks" / "profile_roofcal.py"
+G, BG = 8, 4
+PRIM_TOL = 1e-5
+
+
+def _jax_probe_kernels():
+    """The ``k_*`` kernels of the JAX script, executed with BG blocks."""
+    tree = ast.parse(JAX_PRIMS.read_text())
+    defs = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+            and n.name.startswith("k_")]
+    ns = {"jnp": jnp, "pltpu": pltpu, "BG": BG, "C": P.ROWS}
+    exec(compile(ast.Module(body=defs, type_ignores=[]), str(JAX_PRIMS),
+                 "exec"), ns)
+    return {d.name[2:]: ns[d.name] for d in defs}
+
+
+@pytest.fixture(scope="module")
+def jax_probes():
+    probes = _jax_probe_kernels()
+    assert tuple(probes) == P.PRIMS
+    return probes
+
+
+@pytest.fixture(scope="module")
+def probe_input():
+    return np.random.default_rng(0).uniform(
+        0.0, 16.0, (G, P.ROWS, P.COLS)).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", P.PRIMS)
+def test_twin_matches_the_jax_probe(jax_probes, probe_input, name):
+    shape = (G, P.ROWS, P.COLS)
+    spec = pl.BlockSpec((BG, P.ROWS, P.COLS), lambda i: (i, 0, 0))
+    ref = np.asarray(pl.pallas_call(
+        jax_probes[name], grid=(G // BG,), in_specs=[spec], out_specs=spec,
+        out_shape=jax.ShapeDtypeStruct(shape, jnp.float32),
+        interpret=True)(jnp.asarray(probe_input)))
+    kernels.reset_counts()
+    got = P.prim(torch.from_numpy(probe_input), name).numpy()
+    assert kernels.LAUNCHES["prims"] == 0  # the CPU takes the twin
+    assert got.dtype == ref.dtype == np.float32 and got.shape == shape
+    if name in P.BITWISE:
+        np.testing.assert_array_equal(got, ref)
+    else:
+        assert np.abs(got - ref).max() <= PRIM_TOL * np.abs(ref).max()
+
+
+def _jax_keys(path):
+    """The keys a JAX script assigns in ``res[...]``; ``res[name + "_ms"]``
+    in a loop over ``(name, kernel)`` pairs gives one key a name."""
+    tree = ast.parse(path.read_text())
+    loops = {}
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.For) and isinstance(node.target, ast.Tuple)
+                and isinstance(node.iter, ast.List)):
+            var = node.target.elts[0].id
+            loops[var] = [e.elts[0].value for e in node.iter.elts]
+    keys = set()
+    for node in ast.walk(tree):
+        if not (isinstance(node, ast.Subscript)
+                and isinstance(node.value, ast.Name)
+                and node.value.id == "res"
+                and isinstance(node.ctx, ast.Store)):
+            continue
+        key = node.slice
+        if isinstance(key, ast.Constant):
+            keys.add(key.value)
+        else:
+            assert isinstance(key, ast.BinOp) and isinstance(key.op, ast.Add)
+            keys.update(n + key.right.value for n in loops[key.left.id])
+    return keys
+
+
+@pytest.mark.parametrize("script,ref,extra", [
+    (profile_prims, JAX_PRIMS, {"device"}),
+    (profile_roofcal, JAX_ROOFCAL, {"device", "note"}),
+], ids=["prims", "roofcal"])
+def test_entry_points_print_the_jax_keys(capsys, script, ref, extra):
+    assert script.main(["--device", "cpu", "--cells", "64"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    res = json.loads(lines[-1])
+    jax_keys = _jax_keys(ref)
+    assert len(jax_keys) >= 9
+    assert set(res) == jax_keys | extra
+    assert res["device"] == "cpu"
+    assert all(v > 0 for k, v in res.items() if k not in ("device", "note"))
+
+
+@pytest.mark.parametrize("script", [profile_prims, profile_roofcal],
+                         ids=["prims", "roofcal"])
+def test_entry_points_do_not_fall_back_to_the_cpu(monkeypatch, script):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in ([], ["--device", "cuda:0"]):
+        with pytest.raises(SystemExit) as exc:
+            script.main(argv)
+        assert exc.value.code not in (0, None)
+
+
+def test_wrapper_raises_for_other_devices_and_probes():
+    x = torch.empty((4, P.ROWS, P.COLS), device="meta")
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        P.prim(x, "copy")
+    with pytest.raises(ValueError, match="unknown probe"):
+        P.prim(torch.zeros((1, P.ROWS, P.COLS)), "fma32")

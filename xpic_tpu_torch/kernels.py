@@ -53,6 +53,8 @@ SIGNATURES = {
     # t, v, B_p, valid, L, Islot, G, K, (dt/2) q/m, (dt^2/2) mpw q^2/m,
     # q mpw, stream
     "ecsim_fill": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P),
+    # x, out, G, probe (0 copy .. 5 reduce16), stream
+    "prims": (_P, _P, _I, _I, _P),
 }
 
 LAUNCHES = {name: 0 for name in SIGNATURES}
