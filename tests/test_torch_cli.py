@@ -34,6 +34,8 @@ from xpic_tpu_torch.runtime import cli as tcli
 from xpic_tpu_torch.runtime import step_profile
 from xpic_tpu_torch.schemes import build_simulation
 
+from torch_shared_fixture import build_once
+
 torch.set_num_threads(1)
 
 STEPS = 4
@@ -88,19 +90,29 @@ def _run(cli, schemes, cfg_path, argv, monkeypatch):
     return built[0]
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    outs = {}
+def _build_runs(root):
+    """Both packages' runs into ``root/<name>/out``, with their KSP
+    histories in ``root/ksp.json``."""
+    ksp = {}
     for name, cli, schemes, argv in (
             ("jax", jcli, jschemes, []),
             ("torch", tcli, tschemes, ["--device", "cpu"])):
-        root = tmp_path_factory.mktemp(name)
-        cfg = root / "cfg.json"
-        cfg.write_text(json.dumps(make_doc(root / "out")))
+        (root / name).mkdir()
+        cfg = root / name / "cfg.json"
+        cfg.write_text(json.dumps(make_doc(root / name / "out")))
         mp = pytest.MonkeyPatch()
         sim = _run(cli, schemes, cfg, argv, mp)
-        outs[name] = (root / "out", list(sim.ksp_history))
-    return outs
+        ksp[name] = list(sim.ksp_history)
+    (root / "ksp.json").write_text(json.dumps(ksp))
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Built once per test run, whatever the number of xdist workers
+    (``torch_shared_fixture.build_once``)."""
+    root = build_once(tmp_path_factory, "torch_cli_runs", _build_runs)
+    ksp = json.loads((root / "ksp.json").read_text())
+    return {name: (root / name / "out", ksp[name]) for name in ksp}
 
 
 @pytest.mark.parametrize("table", TABLES)

@@ -3,7 +3,8 @@ card (marked ``gpu``; skipped where there is no CUDA device).
 
 The rebin kernels must match their twins bit for bit through the whole
 exchange at AT = 16, 32 and 128; the Chebyshev kernel to 1e-5 relative
-(nvcc contracts multiply-adds into FMAs, which round once); the mass
+(nvcc contracts multiply-adds into FMAs, which round once) from 8^3 to
+64^3, bitwise from run to run, in one launch an apply; the mass
 apply to 1e-5 of max |Y| (its K-sums run in another order than the
 twin's), the slot gather to 2e-6 of max |E_p|, the segment-field
 gather to 1e-5 of max |E_p| and max |B_p| (FMAs, and the segment
@@ -113,6 +114,35 @@ def test_cheb_kernel_matches_twin(dev, bounds):
     ref = cheb_matM_inv_plain(rhs, shift, geom=geom, degree=12, dt=geom.dt)
     rel = float((got - ref).abs().max() / ref.abs().max())
     assert rel <= 1e-5
+
+
+def test_cheb_kernel_one_launch_at_every_size(dev):
+    """One cooperative launch an apply, from the 8^3 field to 64^3 (more
+    elements than the card holds threads at once) and a non-cubic field,
+    with periodic and with ghosted, periodic, reflective axes, at degrees
+    1, 2 and 12: within 1e-5 relative of the twin, and bitwise equal from
+    one apply to the next."""
+    rng = np.random.default_rng(7)
+    shift = torch.tensor(0.37, dtype=torch.float32, device=dev)
+    for nx, ny, nz in [(8, 8, 8), (16, 16, 16), (32, 32, 32), (64, 64, 64),
+                       (40, 24, 12)]:
+        for bounds in [("periodic",) * 3,
+                       ("ghosted", "periodic", "reflective")]:
+            geom = Geometry(dx=0.5, dy=0.4, dz=0.6, dt=1.5, nx=nx, ny=ny,
+                            nz=nz, nt=1, bounds=bounds)
+            rhs = torch.tensor(rng.standard_normal((3,) + geom.shape),
+                               dtype=torch.float32, device=dev)
+            for degree in (1, 2, 12):
+                kw = dict(geom=geom, degree=degree, dt=geom.dt)
+                case = (nx, ny, nz, bounds[0], degree)
+                before = kernels.LAUNCHES["cheb_step"]
+                got = cheb_matM_inv(rhs, shift, **kw)
+                assert kernels.LAUNCHES["cheb_step"] == before + 1, case
+                again = cheb_matM_inv(rhs, shift, **kw)
+                ref = cheb_matM_inv_plain(rhs, shift, **kw)
+                rel = float((got - ref).abs().max() / ref.abs().max())
+                assert rel <= 1e-5, case
+                assert torch.equal(got, again), case
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):

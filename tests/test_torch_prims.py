@@ -13,11 +13,14 @@ orders).  That script runs its whole benchmark when imported, so its six
 The port's two entry points print the JAX scripts' keys (read with
 ``ast`` from their ``res[...]`` assignments) plus ``device`` (and, for
 the roofline calibration, ``note``); without CUDA they exit non-zero
-unless asked for the CPU.
+unless asked for the CPU.  ``turns`` imports another checkout's
+Chebyshev apply beside this tree's without replacing it or building
+into it, and without CUDA it exits non-zero.
 """
 
 import ast
 import json
+import sys
 from pathlib import Path
 
 import jax
@@ -28,9 +31,11 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from xpic_tpu_torch import kernels
+from xpic_tpu_torch import config, kernels
 from xpic_tpu_torch.benchmarks import prims as P
-from xpic_tpu_torch.benchmarks import profile_prims, profile_roofcal
+from xpic_tpu_torch.benchmarks import profile_prims, profile_roofcal, turns
+from xpic_tpu_torch.config import Geometry
+from xpic_tpu_torch.ops import stencil_kernel
 
 REPO = Path(__file__).resolve().parent.parent
 JAX_PRIMS = REPO / "benchmarks" / "profile_pallas_prims.py"
@@ -138,3 +143,25 @@ def test_wrapper_raises_for_other_devices_and_probes():
         P.prim(x, "copy")
     with pytest.raises(ValueError, match="unknown probe"):
         P.prim(torch.zeros((1, P.ROWS, P.COLS)), "fma32")
+
+
+def test_cheb_turns_imports_the_other_tree_apart(monkeypatch):
+    names, case = turns.CASES["cheb_step"]
+    other = turns.load_other(str(REPO), names)
+    sk, kern = other["ops.stencil_kernel"], other["kernels"]
+    assert sk is not stencil_kernel and kern is not kernels
+    assert sys.modules[stencil_kernel.__name__] is stencil_kernel
+    assert kern.BUILD_DIR != kernels.BUILD_DIR
+    this = {"ops.stencil_kernel": stencil_kernel, "config": config}
+    cpu = torch.device("cpu")
+    assert torch.equal(case(other, cpu, 4)(), case(this, cpu, 4)())
+    geom = Geometry(dx=0.5, dy=0.5, dz=0.5, dt=1.5, nx=4, ny=4, nz=4, nt=1)
+    rhs = torch.tensor(np.random.default_rng(0).standard_normal(
+        (3, 4, 4, 4)))
+    kw = dict(geom=geom, degree=12, dt=geom.dt)
+    assert torch.equal(sk.cheb_matM_inv(rhs, 0.37, **kw),
+                       stencil_kernel.cheb_matM_inv(rhs, 0.37, **kw))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        turns.main([str(REPO)])
+    assert exc.value.code not in (0, None)

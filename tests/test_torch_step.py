@@ -26,6 +26,8 @@ from xpic_tpu_torch.convert import state_from_numpy, to_numpy
 from xpic_tpu_torch.ops.binning import bin_state
 from xpic_tpu_torch.parallel.step import ecsim_multi_step, ecsim_step_binned
 
+from torch_shared_fixture import build_once
+
 torch.set_num_threads(1)
 
 N_SIDE, PPC, SLOTS, STEPS = 8, 10, 24, 3
@@ -58,18 +60,19 @@ def cell_multisets(r, p, alive, geom):
     return cell[order], np.concatenate([r, p], axis=1)[order]
 
 
-@pytest.fixture(scope="module", params=["float64", "float32"])
-def runs(request):
+def _build_runs(root, dtype):
+    """Both packages' 3 steps in ``dtype``, saved to ``root/runs.npz``:
+    fields, per-cell particle multisets, KSP iterations, and the port's
+    kernel launches counted over its run."""
     geom, E, B, B0, r, p = _inputs()
-    npd = np.dtype(request.param)
+    npd = np.dtype(dtype)
     jd = jnp.float64 if npd == np.float64 else jnp.float32
     sp = ParticleArrays(r=jnp.asarray(r, jd), p=jnp.asarray(p, jd),
                         alive=jnp.ones(len(r), bool))
     Ej, Bj, spj, itj = jax_multi_step(
         jnp.asarray(E, jd), jnp.asarray(B, jd), jnp.asarray(B0, jd), sp,
         geom, SLOTS, n_steps=STEPS, **KW)
-    ref = (np.asarray(Ej), np.asarray(Bj),
-           cell_multisets(spj.r, spj.p, spj.alive, geom), np.asarray(itj))
+    ref_cells, ref_rows = cell_multisets(spj.r, spj.p, spj.alive, geom)
 
     kernels.reset_counts()
     td = torch.float64 if npd == np.float64 else torch.float32
@@ -78,10 +81,30 @@ def runs(request):
                                         device="cpu", dtype=td)
     Et, Bt, spt, itt = ecsim_multi_step(Et, Bt, B0t, spt, tgeom, SLOTS,
                                         n_steps=STEPS, **KW)
+    launches = np.array(list(kernels.LAUNCHES.values()))
     spn = to_numpy(spt)
-    got = (to_numpy(Et), to_numpy(Bt),
-           cell_multisets(spn.r, spn.p, spn.alive, geom), itt.numpy())
-    return request.param, geom, ref, got
+    got_cells, got_rows = cell_multisets(spn.r, spn.p, spn.alive, geom)
+    np.savez(root / "runs.npz", ref_E=np.asarray(Ej), ref_B=np.asarray(Bj),
+             ref_cells=ref_cells, ref_rows=ref_rows, ref_it=np.asarray(itj),
+             got_E=to_numpy(Et), got_B=to_numpy(Bt), got_cells=got_cells,
+             got_rows=got_rows, got_it=itt.numpy(), launches=launches)
+
+
+@pytest.fixture(scope="module", params=["float64", "float32"])
+def runs(request, tmp_path_factory):
+    """Built once per test run, whatever the number of xdist workers
+    (``torch_shared_fixture.build_once``)."""
+    dtype = request.param
+    root = build_once(tmp_path_factory, f"torch_step_runs_{dtype}",
+                      lambda root: _build_runs(root, dtype))
+    with np.load(root / "runs.npz") as z:
+        a = {k: z[k] for k in z.files}
+    geom = Geometry(**GEOM_KW)
+    ref = (a["ref_E"], a["ref_B"], (a["ref_cells"], a["ref_rows"]),
+           a["ref_it"])
+    got = (a["got_E"], a["got_B"], (a["got_cells"], a["got_rows"]),
+           a["got_it"], a["launches"])
+    return dtype, geom, ref, got
 
 
 def _tol(dtype):
@@ -112,7 +135,8 @@ def test_ksp_iterations_match(runs):
 
 
 def test_cpu_run_launches_no_kernel(runs):
-    assert all(v == 0 for v in kernels.LAUNCHES.values())
+    """The launches counted over the port's CPU run."""
+    assert not runs[3][4].any()
 
 
 def test_warm_started_step_matches_jax():

@@ -12,12 +12,21 @@ JSON line with the JAX scripts' keys, plus ``device``.  They run on
 rather than fall back.  A CPU run times PyTorch's CPU kernels with the
 host clock and is never a device number.
 
-This module holds what the scripts and ``chip_smoke.py`` share: the
-timers and the card's name.
+    python -m xpic_tpu_torch.benchmarks.turns OTHER_ROOT [--kernel NAME]
+
+times one of this tree's kernels against another checkout's, in turns;
+
+    python -m xpic_tpu_torch.benchmarks.prims_frames [--cells G]
+
+times candidate load/store frames of the ``prims`` kernel against its
+kept frame and ``copy_``.  Both run on the card only.  This module
+holds what the scripts and ``chip_smoke.py`` share: the timers and the
+card's name.
 """
 
 from __future__ import annotations
 
+import statistics
 import subprocess
 import time
 
@@ -61,7 +70,7 @@ def device_ms(fn, device: torch.device) -> float:
     """The time of one call of ``fn`` in ms: R calls back to back between
     two CUDA events, divided by R, after a warm-up call.
 
-    R fits about 50 ms of calls, 3 to 32 of them (a K1 apply is 12
+    R fits about 50 ms of calls, 3 to 32 of them (a call may be several
     launches, and the stream's queue holds about a thousand).  Before the
     start event the stream spins in a sleep kernel for four times the
     host's enqueue time of R calls, so the host has queued them all when
@@ -94,6 +103,23 @@ def device_ms(fn, device: torch.device) -> float:
         end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def call_ms(fn, device: torch.device, reps: int = 20) -> float:
+    """The median of ``reps`` CUDA-event timings of one call of ``fn``
+    after a warm-up: the host's launch gap is in it."""
+    fn()
+    _sync(device)
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def host_sync_ms(fn, device: torch.device, reps: int = 200) -> float:

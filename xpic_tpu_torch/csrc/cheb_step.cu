@@ -1,33 +1,55 @@
-// cheb_step: one iteration of the degree-k Chebyshev semi-iteration
+// cheb_step: the degree-`degree` Chebyshev semi-iteration
 //   x ~ ((2 + shift) I + beta curl- curl+)^{-1} rhs
-// on a Yee field [3, nz, ny, nx] float32.
+// on a Yee field [3, nz, ny, nx] float32, in one launch an apply.
 //
 // Replaces: xpic_tpu/ops/pallas_stencil.py:_cheb_kernel (entry
 // cheb_matM_inv_pallas), which runs the whole recurrence in one dispatch
 // with the field resident in TPU VMEM.
 //
-// Bound on the H100: memory.  Per element and iteration the kernel reads
-// d (13 stencil taps, mostly cache hits), x and r, and writes x, r and
-// the next d: about 6 x 4 bytes of DRAM-or-L2 traffic and ~40 FLOPs.
-// The 32^3 field is 393 KB, more than one block's 227 KB of shared
-// memory, so the TPU's single fused dispatch cannot be copied; instead
-// the preconditioner issues one launch per iteration with a ping-pong d
-// buffer, and the whole working set (x, r, two d buffers, rhs: ~2 MB)
-// stays in the 50 MB L2 between launches.
+// Bound on the H100: operations, with rhs read and x written once.  Per
+// element, a middle sweep does 33 float32 operations (four curl+ taps of
+// 5, 5 to combine them, 1 for x, 4 for r, 3 for d); the first sweep 13
+// more (its 13 distinct taps of rhs, each scaled by 1/theta); the last
+// only x += d.  So an apply of degree k >= 2 does 46 + 33 (k - 2) + 1
+// operations an element, 377 at degree 12: 0.00055 ms at 32^3.  What an
+// apply really waits on is its `degree` dependent sweeps: each needs all
+// of the previous sweep's d.  The working set (x, r, two d buffers, rhs:
+// ~2 MB at 32^3) stays in the 50 MB L2.
 //
-// Design: one thread per (component, cell).  It evaluates
-// (curl- curl+ d)[c, i] straight from d through the 2-hop stencil
-// (periodic wrap or zero fill per axis, as ops/stencil.shift), then
+// Design: one cooperative launch (cudaLaunchCooperativeKernel).  The grid
+// is as many blocks as the card holds at once (the occupancy query times
+// the SM count, asked at every launch), capped at the work.  Each iteration is a grid-stride
+// sweep over the 3 nz ny nx elements, so every grid size, however large,
+// goes through the same kernel, and a grid-wide barrier
+// (cooperative_groups::this_grid().sync()) separates the iterations,
+// with a ping-pong d buffer.  The field need not fit anywhere on chip.
+// A launch the runtime refuses returns its error; there is no second
+// path.  512 threads a block (ptxas: 40 registers, no spill).  Per
+// element, (curl- curl+ d)[c, i] comes straight from d through the
+// 2-hop stencil (periodic wrap or zero fill per axis, as
+// ops/stencil.shift), its 13 tap positions worked out once from the
+// cell's wrapped neighbour offsets, then
 //   x += d;  r -= a d + beta cc;  d_out = cd d + cr r.
-// The shift is a device scalar: every thread replays the <= degree
-// scalar steps of the rho recurrence from it, so the apply needs no
-// host synchronisation.  The arithmetic follows the TPU kernel's
-// expression order; nvcc may contract a multiply and an add into an
-// FMA, which rounds once instead of twice (agreement with the plain
-// twin is checked to 1e-5 relative).
+//
+// Coherence: d, x and r are written by this launch and read after a grid
+// barrier, d by other blocks.  They are read with plain coherent loads:
+// no __ldg and no const __restrict__, because a non-coherent
+// (ld.global.nc) load may return a line cached before the barrier.
+// Only rhs and shift are read-only.
+//
+// The shift is a device scalar: every thread starts the rho recurrence
+// from it at entry and advances it one step an iteration, so the apply
+// needs no host synchronisation.  The arithmetic follows the TPU
+// kernel's expression order; nvcc may contract a multiply and an add
+// into an FMA, which rounds once instead of twice (agreement with the
+// plain twin is checked to 1e-5 relative).
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace {
+
+constexpr int kThreads = 512;
 
 struct Grid {
   int nx, ny, nz;
@@ -48,80 +70,104 @@ __device__ __forceinline__ bool wrap(int& q, int n, int periodic) {
   return true;
 }
 
+// One cell's neighbourhood, worked out once an element: along each axis
+// (0 = x, 1 = y, 2 = z) the element offsets of the coordinate one step
+// below, at and one step above the cell ([0], [1], [2]; wrapped on a
+// periodic axis), and whether each lies inside the grid.  Every tap of
+// the 2-hop stencil is one of these per axis, so a tap costs a test and
+// two adds.
+struct Nbhd {
+  int off[3][3];
+  bool in[3][3];
+
+  __device__ __forceinline__ void set(int axis, int q, int n, int periodic,
+                                      int stride) {
+    int lo = q - 1, hi = q + 1;
+    in[axis][0] = wrap(lo, n, periodic);
+    in[axis][1] = true;
+    in[axis][2] = wrap(hi, n, periodic);
+    off[axis][0] = lo * stride;
+    off[axis][1] = q * stride;
+    off[axis][2] = hi * stride;
+  }
+  __device__ __forceinline__ bool inside(int ix, int iy, int iz) const {
+    return in[0][ix] && in[1][iy] && in[2][iz];
+  }
+  __device__ __forceinline__ int at(int ix, int iy, int iz) const {
+    return off[0][ix] + off[1][iy] + off[2][iz];
+  }
+};
+
 struct Field {
-  const float* d;    // current direction (unused when first)
+  const float* d;    // current direction (unused when first); written by
+                     // the previous sweep, so never read through __ldg
   const float* rhs;  // first iteration: d = rhs / theta
   float inv_theta;
   bool first;
+  int n;             // elements of a component
 
-  __device__ __forceinline__ float at(const Grid& g, int c, int z, int y,
-                                      int x) const {
-    if (!wrap(x, g.nx, g.px) || !wrap(y, g.ny, g.py) ||
-        !wrap(z, g.nz, g.pz))
-      return 0.0f;
-    const int idx = ((c * g.nz + z) * g.ny + y) * g.nx + x;
+  // Component c at the neighbour (ix, iy, iz) of N; zero outside.
+  __device__ __forceinline__ float at(const Nbhd& N, int c, int ix, int iy,
+                                      int iz) const {
+    if (!N.inside(ix, iy, iz)) return 0.0f;
+    const int idx = c * n + N.at(ix, iy, iz);
     return first ? rhs[idx] * inv_theta : d[idx];
   }
 };
 
-// Component c of curl+ d at (z, y, x); zero outside a zero-filled axis.
-__device__ float curlp_at(const Field& F, const Grid& g, int c, int z,
-                          int y, int x) {
-  if (!wrap(x, g.nx, g.px) || !wrap(y, g.ny, g.py) || !wrap(z, g.nz, g.pz))
-    return 0.0f;
+// Component c of curl+ d at the neighbour (ix, iy, iz) of N (each index
+// below 2: a tap adds one step); zero outside the grid.
+__device__ __forceinline__ float curlp_at(const Field& F, const Nbhd& N,
+                                          const Grid& g, int c, int ix,
+                                          int iy, int iz) {
+  if (!N.inside(ix, iy, iz)) return 0.0f;
   if (c == 0) {
-    const float fz = F.at(g, 2, z, y, x), fy = F.at(g, 1, z, y, x);
-    return (F.at(g, 2, z, y + 1, x) - fz) * g.iy -
-           (F.at(g, 1, z + 1, y, x) - fy) * g.iz;
+    const float fz = F.at(N, 2, ix, iy, iz), fy = F.at(N, 1, ix, iy, iz);
+    return (F.at(N, 2, ix, iy + 1, iz) - fz) * g.iy -
+           (F.at(N, 1, ix, iy, iz + 1) - fy) * g.iz;
   }
   if (c == 1) {
-    const float fx = F.at(g, 0, z, y, x), fz = F.at(g, 2, z, y, x);
-    return (F.at(g, 0, z + 1, y, x) - fx) * g.iz -
-           (F.at(g, 2, z, y, x + 1) - fz) * g.ix;
+    const float fx = F.at(N, 0, ix, iy, iz), fz = F.at(N, 2, ix, iy, iz);
+    return (F.at(N, 0, ix, iy, iz + 1) - fx) * g.iz -
+           (F.at(N, 2, ix + 1, iy, iz) - fz) * g.ix;
   }
-  const float fy = F.at(g, 1, z, y, x), fx = F.at(g, 0, z, y, x);
-  return (F.at(g, 1, z, y, x + 1) - fy) * g.ix -
-         (F.at(g, 0, z, y + 1, x) - fx) * g.iy;
+  const float fy = F.at(N, 1, ix, iy, iz), fx = F.at(N, 0, ix, iy, iz);
+  return (F.at(N, 1, ix + 1, iy, iz) - fy) * g.ix -
+         (F.at(N, 0, ix, iy + 1, iz) - fx) * g.iy;
 }
 
-// Component c of curl- curl+ d at the in-range cell (z, y, x).
-__device__ float curlcurl_at(const Field& F, const Grid& g, int c, int z,
-                             int y, int x) {
+// Component c of curl- curl+ d at N's cell.
+__device__ __forceinline__ float curlcurl_at(const Field& F, const Nbhd& N,
+                                             const Grid& g, int c) {
   if (c == 0) {
-    const float gz = curlp_at(F, g, 2, z, y, x);
-    const float gy = curlp_at(F, g, 1, z, y, x);
-    return (gz - curlp_at(F, g, 2, z, y - 1, x)) * g.iy -
-           (gy - curlp_at(F, g, 1, z - 1, y, x)) * g.iz;
+    const float gz = curlp_at(F, N, g, 2, 1, 1, 1);
+    const float gy = curlp_at(F, N, g, 1, 1, 1, 1);
+    return (gz - curlp_at(F, N, g, 2, 1, 0, 1)) * g.iy -
+           (gy - curlp_at(F, N, g, 1, 1, 1, 0)) * g.iz;
   }
   if (c == 1) {
-    const float gx = curlp_at(F, g, 0, z, y, x);
-    const float gz = curlp_at(F, g, 2, z, y, x);
-    return (gx - curlp_at(F, g, 0, z - 1, y, x)) * g.iz -
-           (gz - curlp_at(F, g, 2, z, y, x - 1)) * g.ix;
+    const float gx = curlp_at(F, N, g, 0, 1, 1, 1);
+    const float gz = curlp_at(F, N, g, 2, 1, 1, 1);
+    return (gx - curlp_at(F, N, g, 0, 1, 1, 0)) * g.iz -
+           (gz - curlp_at(F, N, g, 2, 0, 1, 1)) * g.ix;
   }
-  const float gy = curlp_at(F, g, 1, z, y, x);
-  const float gx = curlp_at(F, g, 0, z, y, x);
-  return (gy - curlp_at(F, g, 1, z, y, x - 1)) * g.ix -
-         (gx - curlp_at(F, g, 0, z, y - 1, x)) * g.iy;
+  const float gy = curlp_at(F, N, g, 1, 1, 1, 1);
+  const float gx = curlp_at(F, N, g, 0, 1, 1, 1);
+  return (gy - curlp_at(F, N, g, 1, 0, 1, 1)) * g.ix -
+         (gx - curlp_at(F, N, g, 0, 1, 0, 1)) * g.iy;
 }
 
-__global__ void cheb_step_kernel(const float* __restrict__ rhs,
-                                 const float* __restrict__ shift,
-                                 float* __restrict__ x,
-                                 float* __restrict__ r,
-                                 const float* __restrict__ d_in,
-                                 float* __restrict__ d_out, Grid g,
-                                 float beta, float beta_lam, int k) {
+__global__ void __launch_bounds__(kThreads)
+    cheb_apply_kernel(const float* __restrict__ rhs,
+                      const float* __restrict__ shift, float* x, float* r,
+                      float* d0, float* d1, Grid g, float beta,
+                      float beta_lam, int degree) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   const int n = g.nx * g.ny * g.nz;
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= 3 * n) return;
-  const int c = tid / n;
-  const int cell = tid - c * n;
-  const int xq = cell % g.nx;
-  const int yq = (cell / g.nx) % g.ny;
-  const int zq = cell / (g.nx * g.ny);
+  const int total = 3 * n;
+  const int stride = gridDim.x * blockDim.x;
 
-  // Scalar recurrence, replayed from the device shift.
+  // Scalar recurrence from the device shift, advanced once an iteration.
   const float a = 2.0f + shift[0];
   const float b = a + beta_lam;
   const float theta = 0.5f * (b + a);
@@ -129,34 +175,65 @@ __global__ void cheb_step_kernel(const float* __restrict__ rhs,
   const float sigma1 = theta / delta;
   const float inv_theta = 1.0f / theta;
   float rho = 1.0f / sigma1;
-  for (int i = 0; i < k; ++i) rho = 1.0f / (2.0f * sigma1 - rho);
-  const float rho_new = 1.0f / (2.0f * sigma1 - rho);
-  const float cd = rho_new * rho;
-  const float cr = 2.0f * rho_new / delta;
 
-  const bool first = (k == 0);
-  const Field F{d_in, rhs, inv_theta, first};
-  const float dv = first ? rhs[tid] * inv_theta : d_in[tid];
-  const float xv = (first ? 0.0f : x[tid]) + dv;
-  const float cc = curlcurl_at(F, g, c, zq, yq, xq);
-  const float rv = (first ? rhs[tid] : r[tid]) - (a * dv + beta * cc);
-  x[tid] = xv;
-  r[tid] = rv;
-  d_out[tid] = cd * dv + cr * rv;
+  for (int k = 0; k < degree; ++k) {
+    const float rho_new = 1.0f / (2.0f * sigma1 - rho);
+    const float cd = rho_new * rho;
+    const float cr = 2.0f * rho_new / delta;
+    const bool first = (k == 0);
+    const bool last = (k == degree - 1);
+    const float* d_in = (k & 1) ? d1 : d0;
+    float* d_out = (k & 1) ? d0 : d1;
+    const Field F{d_in, rhs, inv_theta, first, n};
+    for (int tid = blockIdx.x * blockDim.x + threadIdx.x; tid < total;
+         tid += stride) {
+      const float dv = first ? rhs[tid] * inv_theta : d_in[tid];
+      x[tid] = (first ? 0.0f : x[tid]) + dv;
+      if (last) continue;  // the last sweep's r and d are never read
+      const int c = tid / n;
+      const int cell = tid - c * n;
+      const int row = cell / g.nx;
+      Nbhd N;
+      N.set(0, cell - row * g.nx, g.nx, g.px, 1);
+      N.set(1, row % g.ny, g.ny, g.py, g.nx);
+      N.set(2, row / g.ny, g.nz, g.pz, g.nx * g.ny);
+      const float cc = curlcurl_at(F, N, g, c);
+      const float rv = (first ? rhs[tid] : r[tid]) - (a * dv + beta * cc);
+      r[tid] = rv;
+      d_out[tid] = cd * dv + cr * rv;
+    }
+    rho = rho_new;
+    if (!last) grid.sync();
+  }
 }
 
 }  // namespace
 
+// r, d0 and d1 are scratch fields of rhs's shape; x receives the apply.
 XPIC_API int xpic_cheb_step(const float* rhs, const float* shift, float* x,
-                            float* r, const float* d_in, float* d_out,
-                            int nx, int ny, int nz, int px, int py, int pz,
-                            float ix, float iy, float iz, float beta,
-                            float beta_lam, int k, void* stream) {
-  const Grid g{nx, ny, nz, px, py, pz, ix, iy, iz};
-  const int n = 3 * nx * ny * nz;
-  const int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
-  cheb_step_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      rhs, shift, x, r, d_in, d_out, g, beta, beta_lam, k);
+                            float* r, float* d0, float* d1, int nx, int ny,
+                            int nz, int px, int py, int pz, float ix,
+                            float iy, float iz, float beta, float beta_lam,
+                            int degree, void* stream) {
+  if (degree < 1) return static_cast<int>(cudaErrorInvalidValue);
+  // Blocks the card holds at once: per SM times SMs.
+  int dev = 0, per_sm = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, cheb_apply_kernel, kThreads, 0);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int resident = per_sm * sms;
+  Grid g{nx, ny, nz, px, py, pz, ix, iy, iz};
+  const int work = (3 * nx * ny * nz + kThreads - 1) / kThreads;
+  const int blocks = work < resident ? work : resident;
+  void* args[] = {&rhs, &shift, &x, &r, &d0, &d1, &g, &beta, &beta_lam,
+                  &degree};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(cheb_apply_kernel), dim3(blocks),
+      dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

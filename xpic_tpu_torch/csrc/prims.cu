@@ -25,8 +25,19 @@
 // each row moves as one coalesced 512-byte warp access, with read-only
 // 16-byte loads; the warp loads its 8 rows before it computes (8 loads in
 // flight a lane) and writes each row once.  No shared memory, no
-// barrier, no atomics.  Each probe keeps its chain of operations (the
-// four components of a lane are four independent chains):
+// barrier, no atomics.  Other frames are timed against this one and
+// out.copy_(x) by xpic_tpu_torch/benchmarks/prims_frames.py (whose .cu
+// holds them), and none matches copy_ in every state of L2.  Streaming
+// hints (ld/st.global.cs, evict first) bring the copy level with copy_
+// while L2 holds the output buffer's own lines, but after another
+// buffer's plain stores (copy_'s, in a timing in turns) the copy is no
+// faster and fma64, select16 and reduce16 are slower.  TMA bulk copies
+// through shared memory (written for the copy probe only) time the same
+// in both states, nearer copy_ than this frame, not level with it.
+// Persistent grid-stride warps, two cells a warp, 8 warps a block,
+// L2-only (.cg) stores and L1-bypassing loads are no faster.
+// Each probe keeps its chain of operations (the four components of a
+// lane are four independent chains):
 // - fma: nvcc contracts each step into one FMA, which rounds once where
 //   the twin rounds twice;
 // - roll: a shift that is a multiple of 4 is a __shfl_sync of the float4

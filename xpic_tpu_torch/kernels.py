@@ -36,8 +36,8 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 # C entry point -> argument types (pointers and the stream as void*).
 SIGNATURES = {
-    # rhs, shift, x, r, d_in, d_out, nx, ny, nz, periodic x/y/z,
-    # 1/dx, 1/dy, 1/dz, beta, beta*lam_cc, k, stream
+    # rhs, shift, x, r, d0, d1, nx, ny, nz, periodic x/y/z,
+    # 1/dx, 1/dy, 1/dz, beta, beta*lam_cc, degree, stream
     "cheb_step": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                   _F, _F, _F, _F, _F, _I, _P),
     # P, out, up, dn, G, AT, A, axis, n_ax, nx, ny, stream

@@ -9,10 +9,10 @@ scalar recurrence never leaves the device, so an apply costs no host
 synchronisation.
 
 The TPU kernel runs the whole recurrence in one dispatch with the field
-resident in on-chip memory.  The 32^3 field (393 KB) does not fit one
-Hopper block's 227 KB of shared memory, so the CUDA kernel runs one
-launch per Chebyshev iteration instead, with the field in L2
-(``csrc/cheb_step.cu``).
+resident in on-chip memory.  The CUDA kernel also runs an apply in one
+launch: a cooperative grid as large as the card holds at once sweeps the
+field once an iteration, with a grid-wide barrier between iterations and
+the field in L2 (``csrc/cheb_step.cu``).
 """
 
 from __future__ import annotations
@@ -91,9 +91,9 @@ def cheb_matM_inv_plain(rhs, shift, *, geom: Geometry, degree: int,
 
 
 def cheb_matM_inv(rhs, shift, *, geom: Geometry, degree: int, dt: float):
-    """The preconditioner apply: ``degree`` launches of the ``cheb_step``
-    kernel for a CUDA float32 field, the plain twin for a CPU field;
-    raises otherwise."""
+    """The preconditioner apply: one launch of the ``cheb_step`` kernel
+    for a CUDA float32 field, the plain twin for a CPU field; raises
+    otherwise."""
     if rhs.device.type == "cpu":
         return cheb_matM_inv_plain(rhs, shift, geom=geom, degree=degree,
                                    dt=dt)
@@ -103,18 +103,18 @@ def cheb_matM_inv(rhs, shift, *, geom: Geometry, degree: int, dt: float):
                           (3, geom.nz, geom.ny, geom.nx))
     if degree < 1:
         raise ValueError("cheb_step: degree must be >= 1")
-    s = _as_shift(shift, rhs).reshape(1).contiguous()
+    s = _as_shift(shift, rhs)
+    if s.numel() != 1:
+        raise ValueError("cheb_step: shift must be one value")
     beta, beta_lam = _beta_lam(geom, dt)
     per = [int(b == PERIODIC) for b in geom.bounds]
     x = torch.empty_like(rhs)
-    r = torch.empty_like(rhs)
-    d = [torch.empty_like(rhs), torch.empty_like(rhs)]
-    for k in range(degree):
-        d_in, d_out = d[k % 2], d[(k + 1) % 2]
-        kernels.call(
-            "cheb_step", rhs.data_ptr(), s.data_ptr(), x.data_ptr(),
-            r.data_ptr(), d_in.data_ptr(), d_out.data_ptr(),
-            geom.nx, geom.ny, geom.nz, per[0], per[1], per[2],
-            1.0 / geom.dx, 1.0 / geom.dy, 1.0 / geom.dz, beta, beta_lam, k,
-            device=rhs.device)
+    r, d0, d1 = torch.empty((3,) + tuple(rhs.shape), dtype=rhs.dtype,
+                            device=rhs.device)
+    kernels.call(
+        "cheb_step", rhs.data_ptr(), s.data_ptr(), x.data_ptr(),
+        r.data_ptr(), d0.data_ptr(), d1.data_ptr(),
+        geom.nx, geom.ny, geom.nz, per[0], per[1], per[2],
+        1.0 / geom.dx, 1.0 / geom.dy, 1.0 / geom.dz, beta, beta_lam, degree,
+        device=rhs.device)
     return x

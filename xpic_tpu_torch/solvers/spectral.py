@@ -5,8 +5,8 @@ matM = (2 + c) I + beta curl- curl+ (beta = dt^2/2, c the mean matL
 diagonal) is SPD with a spectrum inside the Gershgorin bounds
 [2 + c, 2 + c + 4 beta (1/dx^2 + 1/dy^2 + 1/dz^2)].  A degree-12
 Chebyshev semi-iteration approximates matM^{-1} with 12 curl-curl
-applications; it runs in the ``cheb_step`` kernel on the card
-(``ops/stencil_kernel.py``).
+applications; on the card the whole apply is one launch of the
+``cheb_step`` kernel (``ops/stencil_kernel.py``).
 """
 
 from __future__ import annotations
