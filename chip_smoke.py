@@ -20,7 +20,8 @@ roofline calibration).  Phases:
    a 40 x 24 x 12 field with ghosted, periodic and reflective axes and a
    64^3 field (more elements than the card holds threads at once), two
    applies bitwise equal, one launch an apply; the mass apply at
-   K = 80 and 96 to 1e-5 of max |Y|; the slot gather at K = 80 to 2e-6
+   K = 80, 96 and 112 to 1e-5 of max |Y|, two calls bitwise equal; the
+   slot gather at K = 80 to 2e-6
    of max |E_p|; each kernel's time back to back (R launches between two
    CUDA events, over R, queued behind a sleep kernel so that no host
    launch gap is in it: ``ms``) and per call (one wrapper call between
@@ -42,7 +43,9 @@ roofline calibration).  Phases:
    ConvergenceHistory table), 1 warm-up step + 3 timed steps: the
    segment-field kernel and the Chebyshev and rebin kernels all launch,
    finite tables, the energy identity within 1e-4 of the total energy,
-   the outer iterations of ``ITERS``;
+   the outer iterations of ``ITERS``; the operands of the run's first
+   fast-path segment-field call are kept, and the kernel is held against
+   its twin and timed on them (live segments a slot, ``ms``, bound);
 9. the eccapfim config at 8^3 x 20 ppc, 2 steps, on the card and on the
    CPU: tables within 1e-4, outer iteration counts within 1 a step;
 10. the ecsimcorr path: ``runtime.cli.main`` on bench.py's ecsimcorr
@@ -69,7 +72,9 @@ roofline calibration).  Phases:
 Phase 3 also holds the segment-field kernel against its twin on the
 drifted 32^3 x 50 ppc state (K = 96) with moves of up to 0.9 cell a
 axis, at K' = 32 (the fast path's crosser columns, read in place) and
-K' = 96, within 1e-5 of max |E_p| and of max |B_p|, and the ECSIM fill
+K' = 96, and at K' = 32 with moves of 1.1 to 2.5 cells a axis (segments
+longer than a cell, the kernel's whole-window branch), within 1e-5 of
+max |E_p| and of max |B_p|, two calls bitwise equal, and the ECSIM fill
 kernel against its twin on the drifted 32^3 x 50 ppc state at K = 96
 and 112, within 1e-5 of max |L| and of max |Islot|.
 
@@ -421,10 +426,30 @@ def main() -> None:
               "KSP iterations differ between card and CPU")
 
     # -- 8. the eccapfim path on the card ------------------------------------
+    import xpic_tpu_torch.schemes.eccapfim as fim
+    from xpic_tpu_torch.benchmarks.turns import (
+        capture_fast_call,
+        eccapfim_config,
+    )
+
+    fast_call = {}
+    inner = capture_fast_call(fim, fast_call)
     with tempfile.TemporaryDirectory(prefix="xpic_smoke_") as work:
-        out, sim, step_times, fim_launches = run_cli(
-            work, SIDE, PPC, FIM_STEPS + 1, "cuda:0", doc=eccapfim_config)
+        try:
+            out, sim, step_times, fim_launches = run_cli(
+                work, SIDE, PPC, FIM_STEPS + 1, "cuda:0",
+                doc=eccapfim_config)
+        finally:
+            fim.segment_fields = inner
         check_eccapfim_run(out, sim, fim_launches, name, card, step_times)
+    check(bool(fast_call), "the eccapfim run made no fast-path call")
+    kc = fast_call["kc"]
+    report["segment_fields"]["path_operands"] = segment_row(
+        fast_call["Eblk"], fast_call["Bblk"], fast_call["t0"][:, :kc],
+        fast_call["tn"][:, :kc], "[8 eccapfim path] segment_fields on the "
+        f"run's first fast-path call, K'={kc} of "
+        f"K={fast_call['t0'].shape[1]}", card)
+    del fast_call
 
     # -- 9. the eccapfim path, card against CPU -------------------------------
     with tempfile.TemporaryDirectory(prefix="xpic_smoke_") as work:
@@ -690,8 +715,9 @@ def cheb_kernel(geom, dev, card):
 
 
 def slot_kernels(geom, dev, card):
-    """Phase 3 for the mass apply (K = 80, the fused path, and 96, the
-    config-driven path's K at 50 ppc) and the slot gather (K = 80), on the
+    """Phase 3 for the mass apply (K = 80, the fused path, 96, the
+    config-driven path's K at 50 ppc, and 112, the K that the CLI and
+    ecsimcorr runs grow to) and the slot gather (K = 80), on the
     drifted and migrated 32^3 x 50 ppc state with B at the slots ~0.2."""
     from xpic_tpu_torch.convert import state_from_numpy
     from xpic_tpu_torch.ops.binning import bin_state, drift_state, rebin
@@ -718,7 +744,7 @@ def slot_kernels(geom, dev, card):
     Bf += 0.05 * rng.standard_normal(shape)
     x = rng.standard_normal(shape)
     report = {}
-    for slots in (80, 96):
+    for slots in (80, 96, 112):
         *_, r, p, alive = bench_state(geom, PPC, VTH, seed=1)
         Bt, xt, _, sp = state_from_numpy(Bf, x, np.zeros(1), r, p, alive,
                                          device=dev, dtype=torch.float32)
@@ -730,6 +756,7 @@ def slot_kernels(geom, dev, card):
             k: KW[k] for k in ("q", "m", "mpw")}).packed
         xg = gather_slots(xt, geom)
         Y_k = mass_apply_slots(xg, packed)
+        same = torch.equal(Y_k, mass_apply_slots(xg, packed))
         Y_p = mass_apply_slots_plain(xg, packed)
         torch.cuda.synchronize()
         err = float((Y_k - Y_p).abs().max())
@@ -745,11 +772,12 @@ def slot_kernels(geom, dev, card):
                    **bound(4 * G * (7 * slots + 2 * 36), 140 * n_valid))
         log(f"[3 kernels] mass_apply K={slots} |B_p| max "
             f"{float(B_p.norm(dim=-1).max()):.3f}: max|d|/max|Y| = "
-            f"{rel:.3e} (tol {MASS_TOL}) | {row['ms']:.4f} ms vs twin "
-            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}) | {card}")
+            f"{rel:.3e} (tol {MASS_TOL}), two calls bitwise equal: {same} "
+            f"| {row['ms']:.4f} ms vs twin {row['plain_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}) | {card}")
         check(np.isfinite(rel) and rel <= MASS_TOL,
               f"mass_apply differs from its twin by {rel:.3e} at K={slots}")
+        check(same, f"two mass_apply calls differ at K={slots}")
         if slots != 80:
             continue
         report["mass_apply"] = row
@@ -890,30 +918,6 @@ def check_cli_run(out, sim, launches, name, card, step_ms):
           f"dumps {dumps}")
 
 
-def eccapfim_config(out_dir, side, ppc, steps):
-    """bench.py's eccapfim workload: ``side``^3 cells of 0.5, dt 1.5,
-    periodic, one electron species at ``ppc`` and T = 0.1 keV, no field;
-    the default diagnostics (and ConvergenceHistory) every step."""
-    L = side * 0.5
-    periodic = "DM_BOUNDARY_PERIODIC"
-    return {
-        "Simulation": "eccapfim",
-        "OutputDirectory": out_dir,
-        "Geometry": {"x": L, "y": L, "z": L, "t": steps * 1.5,
-                     "dx": 0.5, "dy": 0.5, "dz": 0.5, "dt": 1.5,
-                     "diagnose_period": 1.5, "da_boundary_x": periodic,
-                     "da_boundary_y": periodic, "da_boundary_z": periodic},
-        "Particles": [{"sort_name": "electrons", "Np": ppc, "n": 1.0,
-                       "q": -1.0, "m": 1.0, "T": 0.1}],
-        "Presets": [
-            {"command": "SetParticles", "particles": "electrons",
-             "coordinate": {"name": "CoordinateInBox"},
-             "momentum": {"name": "MaxwellianMomentum", "tov": True}},
-        ],
-        "Diagnostics": [],
-    }
-
-
 def check_eccapfim_run(out, sim, launches, name, card, step_ms):
     """Phase 8's gates and line: the first step is the warm-up."""
     from xpic_tpu_torch.diagnostics.compare import TABLES, read_table
@@ -961,6 +965,8 @@ def ecsimcorr_config(out_dir, side, ppc, steps):
     """bench.py's ecsimcorr workload: ``side``^3 cells of 0.5, dt 1.5,
     periodic, one electron species at ``ppc`` and T = 0.1 keV, no field;
     the default diagnostics every step."""
+    from xpic_tpu_torch.benchmarks.turns import eccapfim_config
+
     doc = eccapfim_config(out_dir, side, ppc, steps)
     doc["Simulation"] = "ecsimcorr"
     return doc
@@ -1073,16 +1079,16 @@ def segment_kernel(geom, dev, card):
     """Phase 3 for the segment-field kernel: the drifted 32^3 x 50 ppc
     state at K = 96 (the eccapfim run's K), random E and B, moves of up
     to +-0.9 cell a axis (1 to 4 segments) and rows with tn == t0; the
-    fast path's K' = 32 crosser columns read in place, and K' = 96."""
+    fast path's K' = 32 crosser columns read in place, and K' = 96; then
+    K' = 32 with moves of 1.1 to 2.5 cells a axis, some segment of which
+    is at least 2.05 cells long on an axis (the window offsets of S2 at
+    its two ends then lie two or more apart: the whole-window branch)."""
     from xpic_tpu_torch.convert import state_from_numpy
     from xpic_tpu_torch.ops.binning import bin_state, drift_state
     from xpic_tpu_torch.ops.gather_scatter import cell_t
-    from xpic_tpu_torch.ops.implicit_esirkepov import gather_window_blocks
-    from xpic_tpu_torch.ops.segment_kernel import (
-        FLOPS_PER_SEGMENT,
-        live_segments,
-        segment_fields,
-        segment_fields_plain,
+    from xpic_tpu_torch.ops.implicit_esirkepov import (
+        gather_window_blocks,
+        split_segments,
     )
 
     rng = np.random.default_rng(11)
@@ -1101,35 +1107,66 @@ def segment_kernel(geom, dev, card):
     Bblk = gather_window_blocks(Bt, geom)
     report = {}
     for kp in (32, 96):
-        a, b = t0[:, :kp], tn[:, :kp]
-        E_k, B_k = segment_fields(Eblk, Bblk, a, b)
-        E_p, B_p = segment_fields_plain(Eblk, Bblk, a, b)
-        torch.cuda.synchronize()
-        errs = [float((k - q).abs().max()) for k, q in ((E_k, E_p),
-                                                        (B_k, B_p))]
-        rel = max(errs[0] / float(E_p.abs().max()),
-                  errs[1] / float(B_p.abs().max()))
-        G = a.shape[0]
-        segs = live_segments(a, b)
-        # Read the two windows and t0, tn once; write E_p and B_p.
-        row = dict(max_abs_err=max(errs),
-                   **kernel_times(lambda: segment_fields(Eblk, Bblk, a,
-                                                         b)),
-                   plain_ms=time_ms(lambda: segment_fields_plain(
-                       Eblk, Bblk, a, b)),
-                   **bound(4 * (2 * G * 648 + 4 * G * kp * 3),
-                           FLOPS_PER_SEGMENT * segs))
-        log(f"[3 kernels] segment_fields K'={kp} of K=96 ({segs} live "
-            f"segments, {segs / (G * kp):.2f} a slot): max|d|/max = "
-            f"{rel:.3e} (tol {SEGMENT_TOL}) | {row['ms']:.4f} ms vs twin "
-            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}) | {card}")
-        check(np.isfinite(rel) and rel <= SEGMENT_TOL,
-              f"segment_fields differs from its twin by {rel:.3e} at "
-              f"K'={kp}")
+        row = segment_row(Eblk, Bblk, t0[:, :kp], tn[:, :kp],
+                          f"[3 kernels] segment_fields K'={kp} of K=96",
+                          card)
         if kp == 32:
             report["segment_fields"] = row
+    far = rng.uniform(1.1, 2.5, tuple(t0.shape)) * rng.choice([-1.0, 1.0],
+                                                               t0.shape)
+    a = t0[:, :32]
+    b = (t0 + torch.tensor(far, dtype=torch.float32, device=dev))[:, :32]
+    longest = float(((b - a)[..., None, :]
+                     * split_segments(a, b).diff(dim=-1)[..., None]).abs()
+                    .max())
+    check(longest >= 2.05, f"no segment of the long moves is 2.05 cells "
+          f"long on an axis (longest {longest:.3f})")
+    segment_row(Eblk, Bblk, a, b, "[3 kernels] segment_fields K'=32 of "
+                f"K=96, moves of 1.1 to 2.5 cells (longest segment "
+                f"{longest:.3f} cells on an axis)", card)
     return report
+
+
+def segment_row(Eblk, Bblk, a, b, label, card):
+    """The segment-field kernel on (Eblk, Bblk, a, b): against its twin
+    within 1e-5 of max |E_p| and of max |B_p|, two calls bitwise equal,
+    timed beside its twin and its bound; logs ``label`` with the numbers
+    and returns the kernels line's row, with the live segments a slot."""
+    from xpic_tpu_torch.ops.segment_kernel import (
+        FLOPS_PER_SEGMENT,
+        live_segments,
+        segment_fields,
+        segment_fields_plain,
+    )
+
+    E_k, B_k = segment_fields(Eblk, Bblk, a, b)
+    E_2, B_2 = segment_fields(Eblk, Bblk, a, b)
+    E_p, B_p = segment_fields_plain(Eblk, Bblk, a, b)
+    torch.cuda.synchronize()
+    same = torch.equal(E_k, E_2) and torch.equal(B_k, B_2)
+    errs = [float((k - q).abs().max()) for k, q in ((E_k, E_p), (B_k, B_p))]
+    # B is exactly 0 at the start of an eccapfim run: its error must be 0
+    rel = max(errs[0] / max(float(E_p.abs().max()), 1e-30),
+              errs[1] / max(float(B_p.abs().max()), 1e-30))
+    G, kp, _ = a.shape
+    segs = live_segments(a, b)
+    # Read the two windows and t0, tn once; write E_p and B_p.
+    row = dict(max_abs_err=max(errs),
+               **kernel_times(lambda: segment_fields(Eblk, Bblk, a, b)),
+               plain_ms=time_ms(lambda: segment_fields_plain(Eblk, Bblk, a,
+                                                             b)),
+               **bound(4 * (2 * G * 648 + 4 * G * kp * 3),
+                       FLOPS_PER_SEGMENT * segs),
+               segments_per_slot=segs / (G * kp))
+    log(f"{label} ({segs} live segments, {row['segments_per_slot']:.3f} a "
+        f"slot): max|d|/max = {rel:.3e} (tol {SEGMENT_TOL}), two calls "
+        f"bitwise equal: {same} | {row['ms']:.4f} ms ({row['call_ms']:.4f} "
+        f"a call) vs twin {row['plain_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}) | {card}")
+    check(np.isfinite(rel) and rel <= SEGMENT_TOL,
+          f"segment_fields differs from its twin by {rel:.3e}: {label}")
+    check(same, f"two segment_fields calls differ: {label}")
+    return row
 
 
 def profile_paths(name, card, dev, fused_run):
@@ -1138,6 +1175,7 @@ def profile_paths(name, card, dev, fused_run):
     config for 6 steps and the phase-10 config for 6 steps on each mass
     route through ``runtime.step_profile`` (per-phase and per-diagnostic
     times, and a 2-step ``torch.profiler`` window)."""
+    from xpic_tpu_torch.benchmarks.turns import eccapfim_config
     from xpic_tpu_torch.config import Config
     from xpic_tpu_torch.runtime.step_profile import device_window, profile_run
     from xpic_tpu_torch.schemes import build_simulation

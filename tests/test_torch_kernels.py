@@ -34,7 +34,10 @@ from xpic_tpu_torch.ops.ecsim_kernel import (
     ecsim_gather,
     ecsim_gather_plain,
 )
-from xpic_tpu_torch.ops.implicit_esirkepov import gather_window_blocks
+from xpic_tpu_torch.ops.implicit_esirkepov import (
+    gather_window_blocks,
+    split_segments,
+)
 from xpic_tpu_torch.ops.mass_kernel import (
     mass_apply_slots,
     mass_apply_slots_plain,
@@ -197,14 +200,26 @@ def _slot_inputs(G, K, dev, seed):
 
 @pytest.mark.parametrize("K", [80, 96, 200])
 def test_mass_apply_kernel_matches_twin(dev, K):
-    packed, xg, _ = _slot_inputs(16 ** 3, K, dev, seed=K)
-    before = kernels.LAUNCHES["mass_apply"]
-    got = mass_apply_slots(xg, packed)
-    ref = mass_apply_slots_plain(xg, packed)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["mass_apply"] == before + 1
-    assert got.shape == ref.shape == (16 ** 3, 3, 12)
-    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    """Y within 1e-5 of max |Y| at K and at the extra K of its row (1,
+    33: a ragged last round; 112: the CLI's K), on an odd cell count (the
+    last warp's second cell is absent), with cell 3 holding no live slot
+    (Y exactly 0 there); two calls bitwise equal."""
+    extra = {80: (1, 33), 96: (112,), 200: ()}[K]
+    for k in (K, *extra):
+        G = 16 ** 3 - 1
+        packed, xg, _ = _slot_inputs(G, k, dev, seed=k)
+        packed[3, 6] = 0.0  # coef 0: no live slot in cell 3
+        before = kernels.LAUNCHES["mass_apply"]
+        got = mass_apply_slots(xg, packed)
+        again = mass_apply_slots(xg, packed)
+        ref = mass_apply_slots_plain(xg, packed)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["mass_apply"] == before + 2
+        assert got.shape == ref.shape == (G, 3, 12)
+        assert torch.equal(got, again), k
+        assert not bool(got[3].any()), k
+        assert float((got - ref).abs().max()) <= 1e-5 * float(
+            ref.abs().max()), k
 
 
 @pytest.mark.parametrize("K", [80, 96])
@@ -224,7 +239,11 @@ def test_slot_gather_kernel_matches_twin(dev, K):
                          ids=["16cube", "8x6x4"])
 def test_segment_fields_kernel_matches_twin(dev, kp, shape):
     """K' = kp columns of a [G, 40, 3] move, read in place (kp < 40) or
-    whole; moves up to 0.9 cell a axis, the first 3 slots at rest."""
+    whole; moves up to 0.9 cell a axis, the first 3 slots at rest, cell 1
+    wholly at rest, every slot of cell 2 in 4 segments, cell 4 a mix
+    of 1 to 4 in one row and cell 5 moves of 1.1 to 2.5 cells a axis
+    (segments longer than a cell: the kernel's whole-window branch); two
+    calls bitwise equal."""
     nx, ny, nz = shape
     geom = Geometry(dx=0.5, dy=0.4, dz=0.6, dt=1.5, nx=nx, ny=ny, nz=nz,
                     nt=1)
@@ -236,18 +255,47 @@ def test_segment_fields_kernel_matches_twin(dev, kp, shape):
 
     E = f32(rng.standard_normal((3,) + geom.shape))
     B = f32(rng.standard_normal((3,) + geom.shape))
-    t0 = f32(rng.random((G, 40, 3)))
+    t0 = rng.random((G, 40, 3))
     move = rng.uniform(-0.9, 0.9, (G, 40, 3))
     move[:, :3] = 0.0
-    tn = t0 + f32(move)
+    # Cells whose rows are all at rest (one segment a slot), all cross
+    # three faces (4 segments: t0 just below the faces at 1/2, moved by
+    # 0.3, 0.25 and 0.2 cell, so the three crossings differ), and a mix
+    # of 1 to 4 segments in one row of 32.
+    move[1] = 0.0
+    t0[2] = (0.45, 0.4, 0.35)
+    move[2] = (0.3, 0.25, 0.2)
+    mixed = rng.integers(0, 4, 40)  # faces crossed by each slot of cell 4
+    t0[4] = 0.3
+    move[4] = 0.0
+    for k, n in enumerate(mixed):
+        move[4, k, :n] = 0.4 + 0.05 * np.arange(n)
+    # Long moves; slots 0 and 1 each leave a segment over 2 cells long on
+    # one axis, so the window offsets of S2 at its ends lie 2 or more
+    # apart.
+    move[5] = rng.uniform(1.1, 2.5, (40, 3)) * rng.choice([-1.0, 1.0],
+                                                          (40, 3))
+    t0[5, :2] = ((0.45, 0.5, 0.5), (0.5, 0.55, 0.5))
+    move[5, :2] = ((2.5, 0.0, 0.0), (0.0, -2.3, 0.0))
+    t0, tn = f32(t0), f32(t0 + move)
     Eblk, Bblk = gather_window_blocks(E, geom), gather_window_blocks(B, geom)
     before = kernels.LAUNCHES["segment_fields"]
     got = segment_fields(Eblk, Bblk, t0[:, :kp], tn[:, :kp])
+    again = segment_fields(Eblk, Bblk, t0[:, :kp], tn[:, :kp])
     ref = segment_fields_plain(Eblk, Bblk, t0[:, :kp], tn[:, :kp])
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["segment_fields"] == before + 1
-    for g, r in zip(got, ref):
+    assert kernels.LAUNCHES["segment_fields"] == before + 2
+    segs = (split_segments(t0[:, :kp], tn[:, :kp]).diff(dim=-1) != 0).sum(-1)
+    assert bool((segs[1] == 1).all()) and bool((segs[2] == 4).all())
+    assert set(segs[4].tolist()) == set((1 + mixed[:kp]).tolist())
+    assert len(set(segs[4].tolist())) == (4 if kp >= 32 else 3), kp
+    taus = split_segments(t0[5, :kp], tn[5, :kp])
+    longest = ((tn[5, :kp] - t0[5, :kp])[:, None, :]
+               * taus.diff(dim=-1)[..., None]).abs().amax(dim=(1, 2))
+    assert float(longest[0]) >= 2.4 and float(longest[1]) >= 2.2
+    for g, a, r in zip(got, again, ref):
         assert g.shape == (G, kp, 3)
+        assert torch.equal(g, a)
         assert float((g - r).abs().max()) <= 1e-5 * float(r.abs().max())
 
 
@@ -317,6 +365,9 @@ def test_segment_fields_wrapper_rejects_what_the_kernel_does_not_take(dev):
         segment_fields(blk, blk, t[:, ::2], t[:, ::2])
     with pytest.raises(ValueError):  # different row strides
         segment_fields(blk, blk, t[:, :8], t[:, :8].contiguous())
+    flat = torch.zeros(blk.numel() + 1, device=dev)
+    with pytest.raises(ValueError):  # windows off a 16-byte boundary
+        segment_fields(flat[1:].view(blk.shape), blk, t, t)
 
 
 @pytest.mark.parametrize("name", PRIMS)

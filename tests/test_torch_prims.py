@@ -22,6 +22,7 @@ import ast
 import json
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -165,3 +166,55 @@ def test_cheb_turns_imports_the_other_tree_apart(monkeypatch):
     with pytest.raises(SystemExit) as exc:
         turns.main([str(REPO)])
     assert exc.value.code not in (0, None)
+
+
+def test_mass_and_segment_turns_cases_run_on_the_cpu():
+    """The K4 and K6 cases of ``turns.CASES`` build at side 4 and run on
+    the CPU, through the twins; ``capture_fast_call`` keeps the first
+    call on column slices whole, and the K6 case's call on those
+    operands reads them back in place; ``path_operands`` takes them from
+    one eccapfim step and puts the scheme's function back."""
+    from xpic_tpu_torch.ops import mass_kernel, segment_kernel
+    from xpic_tpu_torch.schemes import eccapfim
+
+    cpu = torch.device("cpu")
+    mods = {"ops.mass_kernel": mass_kernel,
+            "ops.segment_kernel": segment_kernel}
+    calls = turns.CASES["mass_apply"][1](mods, cpu, 4)
+    assert sorted(calls) == ["K=112", "K=80"]
+    for fn in calls.values():
+        Y = fn()
+        assert Y.shape == (64, 3, 12) and Y.dtype == torch.float32
+        assert bool(torch.isfinite(Y).all()) and bool(Y.abs().max() > 0)
+    rng = np.random.default_rng(0)
+
+    def f32(a):
+        return torch.tensor(a, dtype=torch.float32)
+
+    Eblk, Bblk = (f32(rng.standard_normal((8, 3, 6, 6, 6))) for _ in "EB")
+    t0 = f32(rng.random((8, 12, 3)))
+    tn = t0 + f32(rng.uniform(-0.6, 0.6, (8, 12, 3)))
+    fim = SimpleNamespace(segment_fields=segment_kernel.segment_fields)
+    op = {}
+    inner = turns.capture_fast_call(fim, op)
+    fim.segment_fields(Eblk, Bblk, t0, tn)  # whole rows: not kept
+    assert not op
+    fim.segment_fields(Eblk, Bblk, t0[:, :5], tn[:, :5])
+    fim.segment_fields(Eblk, Bblk, t0[:, :4], tn[:, :4])  # not the first
+    assert inner is segment_kernel.segment_fields and op["kc"] == 5
+    assert torch.equal(op["t0"], t0) and torch.equal(op["tn"], tn)
+    calls = turns.CASES["segment_fields"][1](mods, cpu, 4, op)
+    assert sorted(calls) == ["K'=32 of 96", "operands K'=5 of 12"]
+    assert all(v.shape == (64, 32, 3) for v in calls["K'=32 of 96"]())
+    ref = segment_kernel.segment_fields_plain(Eblk, Bblk, t0[:, :5],
+                                              tn[:, :5])
+    got = calls["operands K'=5 of 12"]()
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    # A real call: one float32 eccapfim step at 4^3 x 20 ppc.
+    op = turns.path_operands(cpu, 4, ppc=20)
+    assert eccapfim.segment_fields is segment_kernel.segment_fields
+    K = op["t0"].shape[1]
+    assert op["kc"] == K // 3 and op["t0"].dtype == torch.float32
+    E_p, B_p = turns.CASES["segment_fields"][1](mods, cpu, 4, op)[
+        f"operands K'={K // 3} of {K}"]()
+    assert E_p.shape == (64, K // 3, 3) and bool(torch.isfinite(E_p).all())

@@ -10,13 +10,17 @@ that ``.gitignore`` lists.  Each tree builds its kernels from its own
 sources; the other tree's library goes under this tree's
 ``build/turns_other/``, so nothing is written into OTHER_ROOT.  NAME is a
 key of ``CASES`` (default ``cheb_step``): the kernel's wrapper at the
-main paths' shape, on the same inputs in both trees, made from a numpy
-seed.  Each turn times the other tree, this tree, this tree, the other
-tree: ``ms`` back to back (``benchmarks.device_ms``, no host launch gap)
-and ``call_ms`` (one call between two CUDA events, the host's gap in).
-Prints one JSON line: the turns, each tree's launches a call, the
-largest difference between the two trees' results and the card's name
-and power limit.  Without CUDA it exits non-zero.
+main paths' shapes, on the same inputs in both trees, made from a numpy
+seed; ``mass_apply`` at K = 80 and 112, ``segment_fields`` at K' = 32 of
+K = 96 and on the operands of a real call: the first fast-path call of
+one eccapfim step at side^3 x 50 ppc (:func:`path_operands`, this
+tree's scheme, run before the timing).  Each turn times the other tree,
+this tree, this tree, the other tree: ``ms`` back to back
+(``benchmarks.device_ms``, no host launch gap) and ``call_ms`` (one call
+between two CUDA events, the host's gap in).  Prints one JSON line: the
+turns, each case's medians, each tree's launches a call, the largest
+difference between the two trees' results and the card's name and power
+limit.  Without CUDA it exits non-zero.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import argparse
 import importlib
 import json
 import os
+import statistics
 import sys
 
 import numpy as np
@@ -70,7 +75,7 @@ def load_other(root: str, names) -> dict:
     return mods
 
 
-def _cheb_case(mods, device, side):
+def _cheb_case(mods, device, side, operands=None):
     """K1: one degree-12 Chebyshev apply on rhs [3, side, side, side]
     float32, shift 0.37 (a device scalar), periodic, dx = 0.5, dt = 1.5."""
     geom = mods["config"].Geometry(dx=0.5, dy=0.5, dz=0.5, dt=1.5, nx=side,
@@ -83,9 +88,154 @@ def _cheb_case(mods, device, side):
     return lambda: cheb(rhs, shift, geom=geom, degree=12, dt=geom.dt)
 
 
+def _mass_case(mods, device, side, operands=None):
+    """K4: Y = W^T M W xg on side^3 cells at K = 80 (the fused path) and
+    112 (the CLI and ecsimcorr runs): 50 live slots a cell at random
+    positions, |b| ~ 0.2, padding slots at the cell centre with coef 0."""
+    apply = mods["ops.mass_kernel"].mass_apply_slots
+    G = side ** 3
+    calls = {}
+    for K in (80, 112):
+        rng = np.random.default_rng(K)
+        valid = rng.random((G, K)) < 50 / K
+        t = np.where(valid[..., None], rng.random((G, K, 3)), 0.5)
+        b = 0.15 * rng.standard_normal((G, K, 3))
+        coef = np.where(valid, 0.0225 / (1.0 + np.sum(b * b, axis=-1)), 0.0)
+        packed = np.concatenate(
+            [np.moveaxis(t, -1, 1), np.moveaxis(b, -1, 1), coef[:, None],
+             np.zeros((G, 1, K))], axis=1)
+        P = torch.tensor(np.ascontiguousarray(packed), dtype=torch.float32,
+                         device=device)
+        xg = torch.tensor(rng.standard_normal((G, 3, 12)),
+                          dtype=torch.float32, device=device)
+        calls[f"K={K}"] = lambda P=P, xg=xg: apply(xg, P)
+    return calls
+
+
+def _segment_case(mods, device, side, operands=None):
+    """K6: K' = 32 crosser columns of [side^3, 96, 3] moves, read in
+    place, as in chip_smoke's phase 3: positions uniform in the cell,
+    moves uniform in +-0.9 cell a axis (1 to 4 segments), the first 4
+    slots at rest, windows N(0, 0.1^2); and the call ``operands``
+    (:func:`path_operands`) when given."""
+    fields = mods["ops.segment_kernel"].segment_fields
+    G = side ** 3
+    rng = np.random.default_rng(11)
+    t0 = rng.random((G, 96, 3))
+    move = rng.uniform(-0.9, 0.9, (G, 96, 3))
+    move[:, :4] = 0.0
+
+    def f32(a):
+        return torch.tensor(a, dtype=torch.float32, device=device)
+
+    Eblk = f32(0.1 * rng.standard_normal((G, 3, 6, 6, 6)))
+    Bblk = f32(0.1 * rng.standard_normal((G, 3, 6, 6, 6)))
+    a, b = f32(t0), f32(t0 + move)
+    calls = {"K'=32 of 96": lambda: fields(Eblk, Bblk, a[:, :32],
+                                           b[:, :32])}
+    if operands is not None:
+        op, kc = operands, operands["kc"]
+        calls[f"operands K'={kc} of {op['t0'].shape[1]}"] = lambda: fields(
+            op["Eblk"], op["Bblk"], op["t0"][:, :kc], op["tn"][:, :kc])
+    return calls
+
+
+def whole_rows(T):
+    """The [G, K, 3] rows that a column slice ``T = X[:, :kc]`` of a
+    [G, K, 3] tensor X is read from (a view of X)."""
+    ld = T.stride(0)
+    return T.as_strided((T.shape[0], ld // 3, 3), (ld, 3, 1),
+                        T.storage_offset())
+
+
+def capture_fast_call(fim, store):
+    """Wrap ``fim.segment_fields`` (the eccapfim scheme module's) so that
+    the operands of its first call on column slices (the fast path's
+    crosser columns) are copied into ``store``: Eblk, Bblk, t0 and tn
+    whole, and kc.  Returns the function it wrapped, to be put back."""
+    inner = fim.segment_fields
+
+    def wrapper(Eblk, Bblk, t0, tn):
+        if not store and t0.stride(0) > 3 * t0.shape[1]:
+            store.update(Eblk=Eblk.clone(), Bblk=Bblk.clone(),
+                         t0=whole_rows(t0).clone(),
+                         tn=whole_rows(tn).clone(), kc=t0.shape[1])
+        return inner(Eblk, Bblk, t0, tn)
+
+    fim.segment_fields = wrapper
+    return inner
+
+
+def eccapfim_config(out_dir, side, ppc, steps):
+    """bench.py's eccapfim workload: ``side``^3 cells of 0.5, dt 1.5,
+    periodic, one electron species at ``ppc`` and T = 0.1 keV, no field;
+    the default diagnostics (and ConvergenceHistory) every step."""
+    L = side * 0.5
+    periodic = "DM_BOUNDARY_PERIODIC"
+    return {
+        "Simulation": "eccapfim",
+        "OutputDirectory": out_dir,
+        "Geometry": {"x": L, "y": L, "z": L, "t": steps * 1.5,
+                     "dx": 0.5, "dy": 0.5, "dz": 0.5, "dt": 1.5,
+                     "diagnose_period": 1.5, "da_boundary_x": periodic,
+                     "da_boundary_y": periodic, "da_boundary_z": periodic},
+        "Particles": [{"sort_name": "electrons", "Np": ppc, "n": 1.0,
+                       "q": -1.0, "m": 1.0, "T": 0.1}],
+        "Presets": [
+            {"command": "SetParticles", "particles": "electrons",
+             "coordinate": {"name": "CoordinateInBox"},
+             "momentum": {"name": "MaxwellianMomentum", "tov": True}},
+        ],
+        "Diagnostics": [],
+    }
+
+
+def path_operands(device, side, ppc=50) -> dict:
+    """The operands of the first fast-path ``segment_fields`` call of
+    one float32 eccapfim step of :func:`eccapfim_config` at side^3 x
+    ``ppc`` on ``device`` (the particles loaded from seed 5489, as
+    ``chip_smoke.py`` loads them), as :func:`capture_fast_call` keeps
+    them.  Raises if the step made no such call."""
+    import tempfile
+
+    from .. import schemes
+    from ..commands import particles_load
+    from ..config import Config
+    from ..schemes import eccapfim as fim
+
+    store = {}
+    with tempfile.TemporaryDirectory(prefix="xpic_turns_") as work:
+        cfg = Config.from_json(eccapfim_config(os.path.join(work, "out"),
+                                               side, ppc, 1))
+        particles_load.seed(5489)
+        sim = schemes.build_simulation(cfg, device=device,
+                                       dtype=torch.float32)
+        os.makedirs(cfg.out_dir, exist_ok=True)
+        inner = capture_fast_call(fim, store)
+        try:
+            sim.initialize()
+            sim.calculate()
+        finally:
+            fim.segment_fields = inner
+            sim.finalize()
+    if not store:
+        raise RuntimeError("the eccapfim step made no fast-path "
+                           "segment_fields call")
+    return store
+
+
 # kernel -> (the modules its case calls, the case: (modules, device,
-# side) -> one call of the kernel's wrapper)
-CASES = {"cheb_step": (("ops.stencil_kernel", "config"), _cheb_case)}
+# side, the operands of a real call or None) -> one call of the kernel's
+# wrapper, or {case name: call})
+CASES = {"cheb_step": (("ops.stencil_kernel", "config"), _cheb_case),
+         "mass_apply": (("ops.mass_kernel",), _mass_case),
+         "segment_fields": (("ops.segment_kernel",), _segment_case)}
+
+
+def _max_diff(a, b) -> float:
+    if isinstance(a, (tuple, list)):
+        return max(_max_diff(x, y) for x, y in zip(a, b))
+    return float((a - b).abs().max())
 
 
 def run(other_root: str, kernel: str, side: int, turns: int,
@@ -94,23 +244,39 @@ def run(other_root: str, kernel: str, side: int, turns: int,
     trees = {"this": {m: importlib.import_module(f"{_PKG}.{m}")
                       for m in (*names, "kernels")},
              "other": load_other(other_root, names)}
+    operands = (path_operands(device, side) if kernel == "segment_fields"
+                else None)
     calls, results, launches = {}, {}, {}
     for tree, mods in trees.items():
-        calls[tree] = case(mods, device, side)
+        made = case(mods, device, side, operands)
+        calls[tree] = made if isinstance(made, dict) else {
+            f"side={side}": made}
         counts = mods["kernels"]
         counts.load()
-        before = counts.LAUNCHES[kernel]
-        results[tree] = calls[tree]()
-        launches[tree] = counts.LAUNCHES[kernel] - before
+        launches[tree] = {}
+        for label, fn in calls[tree].items():
+            before = counts.LAUNCHES[kernel]
+            results[tree, label] = fn()
+            launches[tree][label] = counts.LAUNCHES[kernel] - before
     torch.cuda.synchronize(device)
     rows = []
-    for _ in range(turns):
-        for tree in ("other", "this", "this", "other"):
-            rows.append(dict(tree=tree, ms=device_ms(calls[tree], device),
-                             call_ms=call_ms(calls[tree], device)))
+    for label in calls["this"]:
+        for _ in range(turns):
+            for tree in ("other", "this", "this", "other"):
+                fn = calls[tree][label]
+                rows.append(dict(case=label, tree=tree,
+                                 ms=device_ms(fn, device),
+                                 call_ms=call_ms(fn, device)))
+    medians = {label: {f"{tree}_{key}": statistics.median(
+        r[key] for r in rows if r["case"] == label and r["tree"] == tree)
+        for tree in ("this", "other") for key in ("ms", "call_ms")}
+        for label in calls["this"]}
     return dict(
-        kernel=kernel, side=side, turns=rows, launches_per_call=launches,
-        max_abs_diff=float((results["this"] - results["other"]).abs().max()),
+        kernel=kernel, side=side, turns=rows,
+        medians=medians, launches_per_call=launches,
+        max_abs_diff={label: _max_diff(results["this", label],
+                                       results["other", label])
+                      for label in calls["this"]},
         other_root=os.path.abspath(other_root), device=card_label(device))
 
 

@@ -22,10 +22,15 @@ from .implicit_esirkepov import (
     split_segments,
 )
 
-# float32 operations of one segment of non-zero length in the kernel:
-# positions 18, spline weights 486, the (2 sn + s0) / (2 s0 + sn)
-# combinations 72, E 3 x 300 FMAs + 10, B 3 x 258 FMAs + 6.
-FLOPS_PER_SEGMENT = 18 + 486 + 72 + 2 * 900 + 10 + 2 * 774 + 6
+# float32 operations of one segment of non-zero length in the kernel,
+# which sums only over the window offsets of the nonzero weights:
+# positions 18; the first offset of 15 supports, 7 each; per axis 2 S1
+# weights of 4 and 14 S2 weights of 10; E 3 x (8 FMAs for the
+# (2 sn + s0) / (2 s0 + sn) combinations, 32 + 32 + 8 FMAs, 1 add);
+# B 3 x 39 FMAs; the slot's sum 2 + 6 FMAs.  (The full 6^3 loops take
+# 3,904.)
+FLOPS_PER_SEGMENT = (18 + 15 * 7 + 3 * (2 * 4 + 14 * 10)
+                     + 3 * (2 * (8 + 72) + 1) + 3 * 2 * 39 + 2 + 2 * 6)
 
 
 def segment_fields_plain(Eblk, Bblk, t0, tn):
@@ -80,6 +85,9 @@ def segment_fields(Eblk, Bblk, t0, tn):
                 f"{tuple(T.shape)} strides {T.stride()}")
     if not (Eblk.device == Bblk.device == tn.device == t0.device):
         raise ValueError("segment_fields: tensors on different devices")
+    if Eblk.data_ptr() % 16 or Bblk.data_ptr() % 16:
+        raise ValueError("segment_fields: the windows must start on a "
+                         "16-byte boundary (the kernel reads them as float4)")
     E_p = torch.empty((G, K, 3), dtype=torch.float32, device=t0.device)
     B_p = torch.empty_like(E_p)
     kernels.call("segment_fields", Eblk.data_ptr(), Bblk.data_ptr(),
