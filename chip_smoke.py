@@ -76,7 +76,8 @@ K' = 96, and at K' = 32 with moves of 1.1 to 2.5 cells a axis (segments
 longer than a cell, the kernel's whole-window branch), within 1e-5 of
 max |E_p| and of max |B_p|, two calls bitwise equal, and the ECSIM fill
 kernel against its twin on the drifted 32^3 x 50 ppc state at K = 96
-and 112, within 1e-5 of max |L| and of max |Islot|.
+and 112, within 1e-5 of max |L| and of max |Islot|, two calls bitwise
+equal.
 
 ``python3 chip_smoke.py --profile`` adds, after phase 11, two fused steps
 under ``torch.profiler``, the phase-6 config for 8 steps, the phase-8
@@ -1015,63 +1016,50 @@ def check_ecsimcorr_run(mass, out, sim, launches, name, card, step_ms):
 
 def fill_kernel(geom, dev, card, ks=(96, 112)):
     """Phase 3 for the ECSIM fill kernel: the drifted and migrated
-    32^3 x 50 ppc state at each K of ``ks`` with B at the slots ~0.2.
-    Returns the rows by K."""
-    from xpic_tpu_torch.convert import state_from_numpy
-    from xpic_tpu_torch.ops.binning import bin_state, drift_state, rebin
+    32^3 x 50 ppc state at each K of ``ks`` with B at the slots ~0.2
+    (``benchmarks.turns.fill_operands``, the operands its ``ecsim_fill``
+    case times); two calls bitwise equal.  Returns the rows by K."""
+    from xpic_tpu_torch.benchmarks.turns import fill_operands
     from xpic_tpu_torch.ops.ecsim_kernel import (
         FILL_FLOPS_PER_SLOT,
         ecsim_fill,
         ecsim_fill_plain,
     )
-    from xpic_tpu_torch.ops.gather_scatter import (
-        B_STAGGER,
-        cell_t,
-        gather_vector,
-    )
 
-    rng = np.random.default_rng(13)
-    shape = (3,) + geom.shape
-    Bf = np.zeros(shape)
-    Bf[2] = 0.2
-    Bf += 0.05 * rng.standard_normal(shape)
-    kw = dict(dt=geom.dt, **{k: KW[k] for k in ("q", "m", "mpw")})
     rows = {}
     for slots in ks:
-        *_, r, p, alive = bench_state(geom, PPC, VTH, seed=1)
-        Bt, _, _, sp = state_from_numpy(Bf, np.zeros(1), np.zeros(1), r, p,
-                                        alive, device=dev,
-                                        dtype=torch.float32)
-        st = rebin(drift_state(bin_state(sp, geom, slots), geom), geom)
-        t = cell_t(geom, st.r)
-        B_p = gather_vector(Bt, t, st.valid, geom, order=1, width=3,
-                            anchor=-1, stagger=B_STAGGER)
-        args = (t, st.p, B_p, st.valid)
+        args, kw = fill_operands(dev, geom.nx, slots, PPC, VTH)
         L_k, I_k = ecsim_fill(*args, **kw)
+        L_2, I_2 = ecsim_fill(*args, **kw)
         L_p, I_p = ecsim_fill_plain(*args, **kw)
         torch.cuda.synchronize()
+        same = torch.equal(L_k, L_2) and torch.equal(I_k, I_2)
         errs = [float((k - q).abs().max()) for k, q in ((L_k, L_p),
                                                         (I_k, I_p))]
         rel = max(errs[0] / float(L_p.abs().max()),
                   errs[1] / float(I_p.abs().max()))
+        del L_k, I_k, L_2, I_2, L_p, I_p
         G = geom.n_cells
-        n_valid = int(st.valid.sum())
-        # Read t, v, B_p (float32) and valid (a byte) once, write L and
-        # Islot once; the operations per live slot (an invalid slot adds
-        # nothing).
+        n_valid = int(args[3].sum())
+        # What these inputs need: t, v, B_p (float32) of the live slots and
+        # every slot's valid byte read once, L and Islot written once; the
+        # operations of the live slots (a dead slot adds nothing).
         row = dict(max_abs_err=max(errs),
                    **kernel_times(lambda: ecsim_fill(*args, **kw)),
                    plain_ms=time_ms(lambda: ecsim_fill_plain(*args, **kw)),
-                   **bound(4 * 9 * G * slots + G * slots
+                   **bound(4 * 9 * n_valid + G * slots
                            + 4 * G * (1296 + 36),
                            FILL_FLOPS_PER_SLOT * n_valid))
         rows[slots] = row
         log(f"[3 kernels] ecsim_fill K={slots} ({n_valid} live "
-            f"slots): max|d|/max |L|, |Islot| = {rel:.3e} (tol {FILL_TOL}) "
-            f"| {row['ms']:.4f} ms vs twin {row['plain_ms']:.4f} ms, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']}) | {card}")
+            f"slots): max|d|/max |L|, |Islot| = {rel:.3e} (tol {FILL_TOL}), "
+            f"two calls bitwise equal: {same} | {row['ms']:.4f} ms "
+            f"({row['call_ms']:.4f} a call) vs twin {row['plain_ms']:.4f} "
+            f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}) | "
+            f"{card}")
         check(np.isfinite(rel) and rel <= FILL_TOL,
               f"ecsim_fill differs from its twin by {rel:.3e} at K={slots}")
+        check(same, f"two ecsim_fill calls differ at K={slots}")
     return rows
 
 

@@ -9,8 +9,9 @@ apply to 1e-5 of max |Y| (its K-sums run in another order than the
 twin's), the slot gather to 2e-6 of max |E_p|, the segment-field
 gather to 1e-5 of max |E_p| and max |B_p| (FMAs, and the segment
 weights applied in another order), and the ECSIM fill to 1e-5 of
-max |L| and of max |Islot| (its slot sums run in slot order, the twin's
-in batched products).  The primitive-rate probes match their twins
+max |L| and of max |Islot| (its slot sums run on tensor cores in
+3xTF32, the twin's in batched float32 products), two calls bitwise
+equal.  The primitive-rate probes match their twins
 bitwise for copy, roll8 and select16, and within 1e-5 of max |out| for
 fma16, fma64 (FMA contraction) and reduce16 (another summation order).
 
@@ -299,13 +300,24 @@ def test_segment_fields_kernel_matches_twin(dev, kp, shape):
         assert float((g - r).abs().max()) <= 1e-5 * float(r.abs().max())
 
 
-def _fill_inputs(G, K, dev, seed, empty_cell=None):
+def _fill_inputs(G, K, dev, seed, empty_cell=None, edges=False):
     """t, v, B_p [G, K, 3] (|b| ~ 0.2 at q/m = -1, dt = 1.5) and valid
-    [G, K] with 70 % live slots; every slot of ``empty_cell`` invalid."""
+    [G, K] with 70 % live slots; every slot of ``empty_cell`` invalid.
+    With ``edges``: cell 5's only live slot is its last, cells 6 and 7
+    have exactly 8 and 9 live slots (the kernel's steps of 8; as many as
+    K allows), cell 8's live slots are a prefix (the rebin's layout) and
+    every slot of cell 9 is live."""
     rng = np.random.default_rng(seed)
     valid = rng.random((G, K)) < 0.7
     if empty_cell is not None:
         valid[empty_cell] = False
+    if edges:
+        valid[5:9] = False
+        valid[5, K - 1] = True
+        for cell, n in ((6, 8), (7, 9)):
+            valid[cell, rng.choice(K, min(n, K), replace=False)] = True
+        valid[8, :max(1, 7 * K // 10)] = True
+        valid[9] = True
 
     def f32(a):
         return torch.tensor(a, dtype=torch.float32, device=dev)
@@ -318,21 +330,34 @@ def _fill_inputs(G, K, dev, seed, empty_cell=None):
 
 @pytest.mark.parametrize("K", [16, 80, 96, 112, 200])
 def test_ecsim_fill_kernel_matches_twin(dev, K):
-    """L and Islot within 1e-5 of their largest magnitudes, K past the
-    kernel's 32-slot chunk included; cell 3 has no live slot."""
-    t, v, B_p, valid = _fill_inputs(16 ** 3, K, dev, seed=K, empty_cell=3)
+    """L and Islot within 1e-5 of their largest magnitudes and two calls
+    bitwise equal, K past the kernel's 32-slot tile included, and from
+    the K = 16 case also K = 1, 7 and 512; cell 3 has no live slot, and
+    cells 5-9 hold the edges of ``_fill_inputs``."""
     kw = dict(q=-1.0, m=1.0, mpw=0.02, dt=1.5)
-    before = kernels.LAUNCHES["ecsim_fill"]
-    L, Islot = ecsim_fill(t, v, B_p, valid, **kw)
-    L_p, Islot_p = ecsim_fill_plain(t, v, B_p, valid, **kw)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["ecsim_fill"] == before + 1
-    assert L.shape == (16 ** 3, 3, 12, 3, 12)
-    assert Islot.shape == (16 ** 3, 3, 12)
-    assert float((L - L_p).abs().max()) <= 1e-5 * float(L_p.abs().max())
-    assert float((Islot - Islot_p).abs().max()) <= \
-        1e-5 * float(Islot_p.abs().max())
-    assert not bool(L[3].any()) and not bool(Islot[3].any())
+    for k in (K, 1, 7, 512) if K == 16 else (K,):
+        t, v, B_p, valid = _fill_inputs(16 ** 3, k, dev, seed=k,
+                                        empty_cell=3, edges=True)
+        before = kernels.LAUNCHES["ecsim_fill"]
+        L, Islot = ecsim_fill(t, v, B_p, valid, **kw)
+        L_2, Islot_2 = ecsim_fill(t, v, B_p, valid, **kw)
+        L_p, Islot_p = ecsim_fill_plain(t, v, B_p, valid, **kw)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["ecsim_fill"] == before + 2
+        assert L.shape == (16 ** 3, 3, 12, 3, 12)
+        assert Islot.shape == (16 ** 3, 3, 12)
+        assert torch.equal(L, L_2) and torch.equal(Islot, Islot_2), k
+        assert float((L - L_p).abs().max()) <= \
+            1e-5 * float(L_p.abs().max()), k
+        assert float((Islot - Islot_p).abs().max()) <= \
+            1e-5 * float(Islot_p.abs().max()), k
+        assert not bool(L[3].any()) and not bool(Islot[3].any())
+        # each edge cell against its own twin, at its own scale
+        for cell in range(5, 10):
+            assert float((L[cell] - L_p[cell]).abs().max()) <= \
+                1e-5 * float(L_p[cell].abs().max()), (k, cell)
+            assert float((Islot[cell] - Islot_p[cell]).abs().max()) <= \
+                1e-5 * float(Islot_p[cell].abs().max()), (k, cell)
 
 
 def test_ecsim_fill_wrapper_rejects_what_the_kernel_does_not_take(dev):

@@ -169,12 +169,13 @@ def test_cheb_turns_imports_the_other_tree_apart(monkeypatch):
 
 
 def test_mass_and_segment_turns_cases_run_on_the_cpu():
-    """The K4 and K6 cases of ``turns.CASES`` build at side 4 and run on
-    the CPU, through the twins; ``capture_fast_call`` keeps the first
+    """The K4, K6 and K7 cases of ``turns.CASES`` build at side 4 and run
+    on the CPU, through the twins; ``capture_fast_call`` keeps the first
     call on column slices whole, and the K6 case's call on those
     operands reads them back in place; ``path_operands`` takes them from
-    one eccapfim step and puts the scheme's function back."""
-    from xpic_tpu_torch.ops import mass_kernel, segment_kernel
+    one eccapfim step and puts the scheme's function back; the K7 case
+    runs on ``fill_operands``, phase 3's drifted and migrated state."""
+    from xpic_tpu_torch.ops import ecsim_kernel, mass_kernel, segment_kernel
     from xpic_tpu_torch.schemes import eccapfim
 
     cpu = torch.device("cpu")
@@ -218,3 +219,16 @@ def test_mass_and_segment_turns_cases_run_on_the_cpu():
     E_p, B_p = turns.CASES["segment_fields"][1](mods, cpu, 4, op)[
         f"operands K'={K // 3} of {K}"]()
     assert E_p.shape == (64, K // 3, 3) and bool(torch.isfinite(E_p).all())
+    ops = {K: turns.fill_operands(cpu, 4, K) for K in (96, 112)}
+    (t, v, B_p, valid), kw = ops[112]
+    assert t.shape == (64, 112, 3) and int(valid.sum()) == 64 * 50
+    assert kw == dict(q=-1.0, m=1.0, mpw=0.02, dt=1.5)
+    calls = turns.CASES["ecsim_fill"][1](
+        {"ops.ecsim_kernel": ecsim_kernel}, cpu, 4, ops)
+    assert sorted(calls) == ["path K=112", "path K=96",
+                             "random K=112 70% live"]
+    L, Islot = calls["path K=112"]()
+    ref = ecsim_kernel.ecsim_fill_plain(t, v, B_p, valid, **kw)
+    assert torch.equal(L, ref[0]) and torch.equal(Islot, ref[1])
+    L, Islot = calls["random K=112 70% live"]()
+    assert L.shape == (64, 3, 12, 3, 12) and bool(torch.isfinite(L).all())

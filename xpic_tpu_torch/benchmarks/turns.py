@@ -14,7 +14,10 @@ main paths' shapes, on the same inputs in both trees, made from a numpy
 seed; ``mass_apply`` at K = 80 and 112, ``segment_fields`` at K' = 32 of
 K = 96 and on the operands of a real call: the first fast-path call of
 one eccapfim step at side^3 x 50 ppc (:func:`path_operands`, this
-tree's scheme, run before the timing).  Each turn times the other tree,
+tree's scheme, run before the timing); ``ecsim_fill`` on the drifted and
+migrated side^3 x 50 ppc state at K = 96 and 112 (:func:`fill_operands`,
+as ``chip_smoke.py``'s phase 3 makes it) and on random inputs with 70%
+of slots live.  Each turn times the other tree,
 this tree, this tree, the other tree: ``ms`` back to back
 (``benchmarks.device_ms``, no host launch gap) and ``call_ms`` (one call
 between two CUDA events, the host's gap in).  Prints one JSON line: the
@@ -140,6 +143,62 @@ def _segment_case(mods, device, side, operands=None):
     return calls
 
 
+def _fill_case(mods, device, side, operands=None):
+    """K7: the ECSIM fill on ``operands`` ({K: :func:`fill_operands`},
+    K = 96 and 112) and on random inputs at K = 112 with 70% of slots
+    live: t uniform in the cell, v ~ N(0, 0.05^2), B_p ~ N(0, 0.25^2)
+    (|b| ~ 0.2 at q/m = -1, dt = 1.5), numpy seed 7."""
+    fill = mods["ops.ecsim_kernel"].ecsim_fill
+    calls = {f"path K={K}": lambda args=args, kw=kw: fill(*args, **kw)
+             for K, (args, kw) in operands.items()}
+    G, K = side ** 3, 112
+    rng = np.random.default_rng(7)
+
+    def f32(a):
+        return torch.tensor(a, dtype=torch.float32, device=device)
+
+    valid = torch.tensor(rng.random((G, K)) < 0.7, device=device)
+    t, v, B_p = (f32(rng.random((G, K, 3))),
+                 f32(0.05 * rng.standard_normal((G, K, 3))),
+                 f32(0.25 * rng.standard_normal((G, K, 3))))
+    kw = dict(q=-1.0, m=1.0, mpw=0.02, dt=1.5)
+    calls[f"random K={K} 70% live"] = lambda: fill(t, v, B_p, valid, **kw)
+    return calls
+
+
+def fill_operands(device, side, slots, ppc=50, vth=0.014):
+    """The ECSIM fill's operands on the drifted and migrated side^3 x
+    ``ppc`` state at K = ``slots`` (cells of 0.5, dt 1.5): particles
+    uniform in the box with thermal momenta of ``vth`` (numpy seed 1), B =
+    0.2 z + N(0, 0.05^2) a component (seed 13) gathered at the slots.
+    Returns ((t, v, B_p, valid), the fill's keywords)."""
+    from ..config import Geometry
+    from ..convert import state_from_numpy
+    from ..ops.binning import bin_state, drift_state, rebin
+    from ..ops.gather_scatter import B_STAGGER, cell_t, gather_vector
+
+    geom = Geometry(dx=0.5, dy=0.5, dz=0.5, dt=1.5, nx=side, ny=side,
+                    nz=side, nt=1)
+    rng = np.random.default_rng(13)
+    shape = (3,) + geom.shape
+    Bf = np.zeros(shape)
+    Bf[2] = 0.2
+    Bf += 0.05 * rng.standard_normal(shape)
+    rng = np.random.default_rng(1)
+    n = geom.n_cells * ppc
+    r = rng.random((n, 3)) * np.array(geom.L)
+    p = rng.standard_normal((n, 3)) * vth
+    Bt, _, _, sp = state_from_numpy(Bf, np.zeros(1), np.zeros(1), r, p,
+                                    np.ones(n, bool), device=device,
+                                    dtype=torch.float32)
+    st = rebin(drift_state(bin_state(sp, geom, slots), geom), geom)
+    t = cell_t(geom, st.r)
+    B_p = gather_vector(Bt, t, st.valid, geom, order=1, width=3, anchor=-1,
+                        stagger=B_STAGGER)
+    return (t, st.p, B_p, st.valid), dict(q=-1.0, m=1.0, mpw=1.0 / ppc,
+                                          dt=geom.dt)
+
+
 def whole_rows(T):
     """The [G, K, 3] rows that a column slice ``T = X[:, :kc]`` of a
     [G, K, 3] tensor X is read from (a view of X)."""
@@ -229,7 +288,18 @@ def path_operands(device, side, ppc=50) -> dict:
 # wrapper, or {case name: call})
 CASES = {"cheb_step": (("ops.stencil_kernel", "config"), _cheb_case),
          "mass_apply": (("ops.mass_kernel",), _mass_case),
-         "segment_fields": (("ops.segment_kernel",), _segment_case)}
+         "segment_fields": (("ops.segment_kernel",), _segment_case),
+         "ecsim_fill": (("ops.ecsim_kernel",), _fill_case)}
+
+
+def _operands(kernel, device, side):
+    """The operands of real calls that ``kernel``'s case takes, made by
+    this tree's code before the timing, or None."""
+    if kernel == "segment_fields":
+        return path_operands(device, side)
+    if kernel == "ecsim_fill":
+        return {K: fill_operands(device, side, K) for K in (96, 112)}
+    return None
 
 
 def _max_diff(a, b) -> float:
@@ -244,8 +314,7 @@ def run(other_root: str, kernel: str, side: int, turns: int,
     trees = {"this": {m: importlib.import_module(f"{_PKG}.{m}")
                       for m in (*names, "kernels")},
              "other": load_other(other_root, names)}
-    operands = (path_operands(device, side) if kernel == "segment_fields"
-                else None)
+    operands = _operands(kernel, device, side)
     calls, results, launches = {}, {}, {}
     for tree, mods in trees.items():
         made = case(mods, device, side, operands)
