@@ -7,10 +7,11 @@ Builds the port's CUDA kernels from ``xpic_tpu_torch/csrc`` (into
 the main paths, runs 10 fused ECSIM steps at 32^3 cells x 50 particles
 per cell in float32 (the flagship workload of ``bench.py``), runs the
 config-driven path (``python -m xpic_tpu_torch cfg.json``) at the same
-size for an ECSIM, an eccapfim and an ecsimcorr config (the last on both
-mass routes), checks the card's results against the CPU's at a smaller
-size, and runs the calibration path (the primitive-rate probe and the
-roofline calibration).  Phases:
+size for an ECSIM, an eccapfim, an ecsimcorr (on both mass routes) and
+a ``basic`` config, checks the card's results against the CPU's at a
+smaller size, runs the calibration path (the primitive-rate probe and
+the roofline calibration) and the step presets of the mirror machine.
+Phases:
 
 1. device: card name and power limit, the IEEE float32 pins;
 2. build: one nvcc per source for sm_90a, with ptxas's register and
@@ -67,7 +68,26 @@ roofline calibration).  Phases:
     kernel launched; then each of its six probes against its twin at
     [32768, 8, 128]: bitwise for copy, roll8 and select16, within 1e-5 of
     max |out| for fma16, fma64 and reduce16; ``out.copy_(x)`` timed as
-    the copy's library yardstick.
+    the copy's library yardstick;
+13. the ``basic`` path: ``runtime.cli.main`` on a 32^3 x 50 ppc config
+    (dx 0.05, dt 0.025, float32, the default diagnostics, a vx-vy
+    VelocityDistribution and a LogView table every step, a backup every
+    2 steps), 1 warm-up + 4 timed steps: the rebin kernels launch and no
+    other, the neighbour exchange's guard logged, finite tables, no
+    particle lost, charge continuity within 1e-5 of rho / dt,
+    |dE+dB+dK| within 2e-5 of the initial kinetic energy every step;
+    then a run restarted from the step-2 backup (``load_from``), its
+    deposit, gathers and migration timed, reaches step 5 with rows
+    within 1e-4 of the first run's;
+14. the ``basic`` config at 16^3 x 20 ppc, 2 steps, on the card and on
+    the CPU: tables within 1e-4, the velocity distributions within 1e-5
+    of the largest bin (step 0 bitwise), one state's histogram bitwise
+    equal on the card twice and on the CPU, equal particle counts;
+15. the mirror machine of ``tests/test_commands.py`` (ecsimcorr,
+    ghosted z, two coils, InjectParticles, RemoveParticles, cylinder
+    FieldsDamping), 3 steps on the card and on the CPU: the source and
+    sink columns present and finite with some injection, tables within
+    1e-4, equal counts step by step, ecsimcorr's kernels on the card.
 
 Phase 3 also holds the segment-field kernel against its twin on the
 drifted 32^3 x 50 ppc state (K = 96) with moves of up to 0.9 cell a
@@ -79,7 +99,7 @@ kernel against its twin on the drifted 32^3 x 50 ppc state at K = 96
 and 112, within 1e-5 of max |L| and of max |Islot|, two calls bitwise
 equal.
 
-``python3 chip_smoke.py --profile`` adds, after phase 11, two fused steps
+``python3 chip_smoke.py --profile`` adds, after phase 15, two fused steps
 under ``torch.profiler``, the phase-6 config for 8 steps, the phase-8
 config for 6 steps and the phase-10 config for 6 steps on each mass
 route through ``xpic_tpu_torch.runtime.step_profile``.
@@ -87,11 +107,11 @@ route through ``xpic_tpu_torch.runtime.step_profile``.
 Exits non-zero on any failure, and without CUDA.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel
 with its launches on the fused path, the ECSIM config-driven path, the
-eccapfim path, the two ecsimcorr runs and the calibration path, its
-error against its twin, its times (``ms``, ``call_ms``), its twin's and
-its bound.  The ``prims`` row's times are the copy probe's (with
-``copy_``'s as ``library_ms``), its error the largest of the six, and
-``probes`` holds each probe's.
+eccapfim path, the two ecsimcorr runs, the calibration path and the
+``basic`` path (``launches_basic``), its error against its twin, its
+times (``ms``, ``call_ms``), its twin's and its bound.  The ``prims``
+row's times are the copy probe's (with ``copy_``'s as ``library_ms``),
+its error the largest of the six, and ``probes`` holds each probe's.
 """
 
 from __future__ import annotations
@@ -124,7 +144,19 @@ ITERS = {"fused": [4] * STEPS, "cli": [4, 4, 4, 5, 5],
          "ecsimcorr predict": [4] * 4, "ecsimcorr correct": [4] * 4,
          "eccapfim outer": [5] * 4}
 FIM_STEPS = CORR_STEPS = 3  # timed, after one warm-up step
+BASIC_STEPS = 4  # timed, after one warm-up step
 MASS_ROUTES = ("free", "blocks")
+# The basic scheme's cell and step (tests/test_basic_scheme.py), its
+# energy bound a step against the initial kinetic energy
+# (tests/test_basic_scheme.py:90), the backup its restart loads, and the
+# parts of its step timed in the restart (step_profile's hooks).
+BASIC_DX, BASIC_DT, BASIC_ENERGY_TOL, BASIC_RESTART = 0.05, 0.025, 2e-5, 2
+VDF_TOL = 1e-5
+BASIC_PARTS = {
+    "esirkepov_current": ("schemes.basic", ("esirkepov_current",)),
+    "gather_vector": ("schemes.basic", ("gather_vector",)),
+    "migrate_checked": ("schemes.basic", ("migrate_checked",)),
+}
 # Float32 operations an element of one degree-12 Chebyshev apply,
 # counted from cheb_step.cu's body: a first sweep of 46, ten middle
 # sweeps of 33 and a last sweep of 1 (x += d).
@@ -163,6 +195,8 @@ CORR_KERNELS = {
     "blocks": ("cheb_step", "rebin_extract", "rebin_place", "ecsim_fill",
                "slot_gather"),
 }
+# The basic path runs the neighbour exchange's kernels and no other.
+BASIC_KERNELS = ("rebin_extract", "rebin_place")
 
 
 def log(msg: str) -> None:
@@ -548,6 +582,15 @@ def main() -> None:
     # -- 12. the calibration path ------------------------------------------
     cal_launches, report["prims"] = calibration_path(dev, card)
 
+    # -- 13. the basic scheme on the card, with a restart ------------------
+    basic_launches = basic_path(name, card)
+
+    # -- 14. the basic scheme, card against CPU ------------------------------
+    basic_card_vs_cpu(card)
+
+    # -- 15. the commands and their energy columns, card against CPU -------
+    commands_path(name, card)
+
     if "--profile" in sys.argv[1:]:
         profile_paths(name, card, dev, lambda: ecsim_multi_step(
             E, B, B0, sp, geom, slots, n_steps=2, **KW))
@@ -563,7 +606,8 @@ def main() -> None:
                    launches_eccapfim=fim_launches[kname],
                    launches_ecsimcorr_free=corr_launches["free"][kname],
                    launches_ecsimcorr_blocks=corr_launches["blocks"][kname],
-                   launches_probe=cal_launches[kname], library_ms=None)
+                   launches_probe=cal_launches[kname],
+                   launches_basic=basic_launches[kname], library_ms=None)
         row.update(report[kname])
         if kname == "rebin_place":
             row["also_replaces"] = ["xpic_tpu/ops/neighbor_rebin.py:496",
@@ -582,6 +626,381 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def basic_config(out_dir, side, ppc, steps):
+    """The explicit scheme's run: ``side``^3 periodic cells of 0.05,
+    dt 0.025 (``tests/test_basic_scheme.py``'s cell and step, Courant
+    0.87), one electron species at ``ppc`` and T = 0.1 keV; the default
+    diagnostics, the electrons' vx-vy velocity distribution and a LogView
+    table every step, a backup every 2 steps."""
+    L = side * BASIC_DX
+    return {
+        "Simulation": "basic",
+        "OutputDirectory": out_dir,
+        "Geometry": {"x": L, "y": L, "z": L, "t": steps * BASIC_DT,
+                     "dx": BASIC_DX, "dy": BASIC_DX, "dz": BASIC_DX,
+                     "dt": BASIC_DT, "diagnose_period": BASIC_DT},
+        "Particles": [{"sort_name": "electrons", "Np": ppc, "n": 1.0,
+                       "q": -1.0, "m": 1.0, "T": 0.1}],
+        "Presets": [
+            {"command": "SetParticles", "particles": "electrons",
+             "coordinate": {"name": "CoordinateInBox"},
+             "momentum": {"name": "MaxwellianMomentum", "tov": True}},
+        ],
+        "Diagnostics": [
+            {"diagnostic": "VelocityDistribution", "particles": "electrons",
+             "projection": "vx_vy"},
+            {"diagnostic": "LogView", "level": "EachTimestep"},
+        ],
+        "SimulationBackup": {"diagnose_period": 2 * BASIC_DT},
+    }
+
+
+def basic_restart_config(out_dir, side, ppc, steps):
+    """:func:`basic_config` restarted from its step-``BASIC_RESTART``
+    backup, which holds the particles."""
+    doc = basic_config(out_dir, side, ppc, steps)
+    doc["Presets"] = []
+    doc["SimulationBackup"]["load_from"] = BASIC_RESTART
+    return doc
+
+
+def basic_path(name, card):
+    """Phase 13: ``runtime.cli.main`` on :func:`basic_config` at 32^3 x
+    50 ppc, float32, 1 warm-up + ``BASIC_STEPS`` timed steps, the launch
+    counts set to 0 just before; the neighbour exchange's guard recorded
+    a migration.  Gates: K2 and K3 launch and no other kernel; every table
+    finite with a row a step; no particle lost; charge continuity within
+    ``CHARGE_TOL`` of rho / dt; |dE+dB+dK| within ``BASIC_ENERGY_TOL`` of
+    the initial kinetic energy every step.  Then a second run restarts
+    from the step-2 backup (``load_from``) with the deposit, the gathers
+    and the migration timed (each closed by a synchronisation) and
+    reaches the last step, whose rows must lie within ``TABLE_TOL`` of
+    the first run's.  Returns the first run's launches."""
+    import shutil
+
+    from xpic_tpu_torch.diagnostics.compare import (
+        TABLES,
+        read_table,
+        table_errors,
+    )
+    from xpic_tpu_torch.ops import neighbor_rebin as NR
+    from xpic_tpu_torch.runtime.step_profile import _patch, _unpatch
+
+    guard = []
+    stats = NR.neighbor_guard_stats
+
+    def recorded(st, geom):
+        out = stats(st, geom)
+        guard.append(bool(out[0]))
+        return out
+
+    steps = BASIC_STEPS + 1
+    n_cells, n0 = SIDE ** 3, SIDE ** 3 * PPC
+    with tempfile.TemporaryDirectory(prefix="xpic_smoke_") as work:
+        NR.neighbor_guard_stats = recorded
+        try:
+            out, sim, step_ms, launches = run_cli(
+                os.path.join(work, "run"), SIDE, PPC, steps, "cuda:0",
+                doc=basic_config)
+        finally:
+            NR.neighbor_guard_stats = stats
+        tables = {t: read_table(os.path.join(out, "temporal", t))
+                  for t in TABLES}
+        h_en, en = tables["energy.txt"]
+        h_ec, ec = tables["energy_conservation.txt"]
+        wk0 = en[0, h_en.index("wK_electrons")]
+        energy = np.abs(ec[1:, h_ec.index("dE+dB+dK")]).max() / wk0
+        charge = charge_share(*tables["charge_conservation.txt"], n_cells,
+                              BASIC_DT)
+        h_log, log_rows = read_table(os.path.join(
+            out, "temporal", "log_EachTimestep.txt"))
+        # each row's diagnostics are the step before's
+        diag_ms = [round(1e3 * v, 3)
+                   for v in log_rows[1:, h_log.index("diagnostics")]]
+        vdf = len(os.listdir(os.path.join(out, "electrons", "vx_vy")))
+        kept = sorted(os.listdir(os.path.join(out, "simulation_backup")))
+        ms = statistics.median(step_ms[1:])
+        slots = sim.species[0].slots
+        log(f"[13 basic path] python -m xpic_tpu_torch cfg.json: {SIDE}^3 "
+            f"x {PPC} ppc f32, dx {BASIC_DX}, dt {BASIC_DT}, 1 + "
+            f"{BASIC_STEPS} steps, K={slots}, {n0} particles: ms/step "
+            f"median {ms:.3f} (per step {[round(v, 3) for v in step_ms]}, "
+            f"the first a warm-up), particle_steps_per_s="
+            f"{n0 / ms * 1e3:.4e}, diagnostics of steps 1.."
+            f"{BASIC_STEPS} (LogView, host clock; backups at even steps) "
+            f"{diag_ms} ms; neighbour-exchange guard passed "
+            f"{sum(guard)} of {len(guard)} migrations; counts "
+            f"{sim.count_history}; max |dE+dB+dK| / wK_0 = {energy:.3e} "
+            f"(tol {BASIC_ENERGY_TOL}); charge continuity / (rho/dt) "
+            f"{charge:.3e} (tol {CHARGE_TOL}); velocity distributions "
+            f"{vdf}, backups kept {kept}; launches {launches} | {name} | "
+            f"{card}")
+        check(all(launches[k] > 0 for k in BASIC_KERNELS)
+              and not any(n for k, n in launches.items()
+                          if k not in BASIC_KERNELS),
+              f"the basic path's launches {launches}")
+        check(all(np.isfinite(rows).all() and rows.shape[0] == steps + 1
+                  for _, rows in tables.values()),
+              "a basic table row is not finite, or a row is missing")
+        check(sim.count_history == [[n0]] * steps,
+              f"basic lost particles: {sim.count_history}")
+        check(charge <= CHARGE_TOL, "basic does not conserve charge")
+        check(energy <= BASIC_ENERGY_TOL,
+              f"basic's energy error {energy:.3e} of wK_0 a step")
+        check(vdf == steps + 1 and kept == [str(BASIC_RESTART + 2 * i)
+                                            for i in range(2)],
+              f"velocity distributions {vdf}, backups {kept}")
+
+        again = os.path.join(work, "restart")
+        shutil.copytree(os.path.join(out, "simulation_backup",
+                                     str(BASIC_RESTART)),
+                        os.path.join(again, "out", "simulation_backup",
+                                     str(BASIC_RESTART)))
+        parts = {}
+        patched = _patch(BASIC_PARTS, torch.cuda.synchronize, parts)
+        try:
+            out2, sim2, step2_ms, _ = run_cli(
+                again, SIDE, PPC, steps, "cuda:0", doc=basic_restart_config)
+        finally:
+            _unpatch(patched)
+        errs = {table: table_errors(table, out, out2, n_cells,
+                                    charge_scale=np.sqrt(n_cells) / BASIC_DT,
+                                    dt=BASIC_DT, step=steps)
+                for table in TABLES}
+        worst = {t: max(e.items(), key=lambda kv: kv[1])
+                 for t, e in errs.items()}
+        n_timed = len(step2_ms)
+        parts_ms = {k: v / n_timed for k, v in parts.items()}
+        step2 = statistics.mean(step2_ms)
+        log(f"[13 basic restart] load_from {BASIC_RESTART}, steps "
+            f"{BASIC_RESTART + 1}..{steps}: ms/step "
+            f"{[round(v, 3) for v in step2_ms]}"
+            f" with the parts closed by synchronisations, a step: "
+            f"{ {k: round(v, 3) for k, v in parts_ms.items()} } ms, the "
+            f"deposit's share {parts_ms['esirkepov_current'] / step2:.3f}; "
+            f"counts {sim2.count_history}; step {steps} rows against the "
+            f"uninterrupted run, worst column per table {worst} (tol "
+            f"{TABLE_TOL}) | {name} | {card}")
+        check(sim2.start == BASIC_RESTART and n_timed == steps - BASIC_RESTART
+              and sim2.count_history == [[n0]] * n_timed,
+              f"the restart ran {n_timed} steps, counts "
+              f"{sim2.count_history}")
+        check(all(e <= TABLE_TOL for _, e in worst.values()),
+              "the restarted run's last rows differ from the first run's")
+    return launches
+
+
+def basic_card_vs_cpu(card):
+    """Phase 14: :func:`basic_config` at 16^3 x 20 ppc, 2 steps, float32,
+    on the card and on the CPU: tables within ``TABLE_TOL`` (the charge
+    norms against rho / dt), the velocity distributions within
+    ``VDF_TOL`` of the largest bin, equal counts; K2 and K3 launch on the
+    card, no kernel on the CPU."""
+    from xpic_tpu_torch.convert import to_numpy
+    from xpic_tpu_torch.diagnostics.compare import TABLES, table_errors
+
+    side = 16
+    with tempfile.TemporaryDirectory(prefix="xpic_smoke_") as work:
+        runs = {}
+        for device in ("cuda:0", "cpu"):
+            runs[device] = run_cli(os.path.join(work, device.split(":")[0]),
+                                   side, 20, 2, device, doc=basic_config)
+        (out_g, sim_g, _, lg), (out_c, sim_c, _, lc) = (runs["cuda:0"],
+                                                        runs["cpu"])
+        worst = {}
+        for table in TABLES:
+            errs = table_errors(table, out_c, out_g, n_cells=side ** 3,
+                                charge_scale=np.sqrt(side ** 3) / BASIC_DT,
+                                dt=BASIC_DT)
+            worst[table] = max(errs.items(), key=lambda kv: kv[1])
+            log(f"    {table}: {errs}")
+        vdf = os.path.join("electrons", "vx_vy")
+        names = sorted(os.listdir(os.path.join(out_c, vdf)))
+        first_equal = (
+            open(os.path.join(out_g, vdf, names[0]), "rb").read()
+            == open(os.path.join(out_c, vdf, names[0]), "rb").read())
+        vdf_err, moved = 0.0, []
+        w = np.float32(1.0 / 20)
+        for nm in names:
+            a = np.fromfile(os.path.join(out_g, vdf, nm), dtype=np.float32)
+            b = np.fromfile(os.path.join(out_c, vdf, nm), dtype=np.float32)
+            check(a.shape == b.shape, f"velocity distribution {nm} shapes")
+            vdf_err = max(vdf_err, float(np.abs(a - b).max() / b.max()))
+            # particles counted in another bin on the card than on the CPU
+            moved.append(float(np.abs(a - b).sum() / (2 * w)))
+        # The two runs' last states, slot by slot, and the histogram of
+        # the card's last state on both devices.
+        st_g, st_c = (to_numpy(sim.species[0].state) for sim in (sim_g,
+                                                                 sim_c))
+        same_slots = np.array_equal(st_g.valid, st_c.valid)
+        dp = (np.abs(st_g.p - st_c.p)[st_c.valid] if same_slots
+              else np.full((1, 3), np.inf))
+        dr = (np.abs(st_g.r - st_c.r)[st_c.valid] if same_slots
+              else np.full((1, 3), np.inf))
+        vd_g, vd_c = (next(d for d in sim.diagnostics
+                           if type(d).__name__ == "VelocityDistribution")
+                      for sim in (sim_g, sim_c))
+        arr = sim_g.species[0].arrays
+        h1, h2 = vd_g.collect(arr), vd_g.collect(arr)
+        h_cpu = vd_c.collect(type(arr)(r=arr.r.cpu(), p=arr.p.cpu(),
+                                       alive=arr.alive.cpu()))
+        same_hist = (torch.equal(h1, h2)
+                     and torch.equal(h1.cpu(), h_cpu))
+        log(f"[14 card vs cpu, basic] {side}^3 x 20 ppc f32, 2 steps: worst "
+            f"column per table {worst} (tol {TABLE_TOL}); velocity "
+            f"distributions {len(names)}, step 0 bitwise equal "
+            f"{first_equal}, max |d| / max bin {vdf_err:.3e} (tol "
+            f"{VDF_TOL}), particles in another bin per file {moved}; "
+            f"last states: same slots {same_slots}, p differs in "
+            f"{int((dp > 0).any(-1).sum())} of {len(dp)} live slots, max "
+            f"|dp| {dp.max():.3e} (max |p| {np.abs(st_c.p).max():.3e}), r "
+            f"differs in {int((dr > 0).any(-1).sum())}, max |dr| "
+            f"{dr.max():.3e} cells; the card's last state's histogram on "
+            f"the card twice and on the CPU bitwise equal: {same_hist}; "
+            f"counts card {sim_g.count_history} cpu "
+            f"{sim_c.count_history}; launches card {lg} cpu {lc} | {card}")
+        check(all(lg[k] > 0 for k in BASIC_KERNELS)
+              and not any(lc.values()),
+              f"routing: card launches {lg}, CPU launches {lc}")
+        check(all(e <= TABLE_TOL for _, e in worst.values()),
+              "basic card tables differ from the CPU's")
+        check(sorted(os.listdir(os.path.join(out_g, vdf))) == names
+              and len(names) == 3 and first_equal and vdf_err <= VDF_TOL,
+              "basic card velocity distributions differ from the CPU's")
+        check(same_hist, "the velocity histogram of one state differs "
+              "between two card calls or between the card and the CPU")
+        check(sim_g.count_history == sim_c.count_history,
+              "basic card counts differ from the CPU's")
+
+
+def mirror_config(out_dir, side, ppc, steps):
+    """``tests/test_commands.py``'s mirror machine (its size; ``side``
+    and ``ppc`` are not used): ecsimcorr on 8 x 8 x 12 cells of 0.5,
+    dt 0.5, z ghosted (open), two coils, electrons in a cylinder, and
+    every step paired injection of ions and electrons, removal of the
+    electrons outside r = 1.8 and cylinder damping of the fields."""
+    ghosted, periodic = "DM_BOUNDARY_GHOSTED", "DM_BOUNDARY_PERIODIC"
+    return {
+        "Simulation": "ecsimcorr",
+        "OutputDirectory": out_dir,
+        "Geometry": {"x": 4.0, "y": 4.0, "z": 6.0, "t": steps * 0.5,
+                     "dx": 0.5, "dy": 0.5, "dz": 0.5, "dt": 0.5,
+                     "diagnose_period": 1, "da_boundary_x": periodic,
+                     "da_boundary_y": periodic, "da_boundary_z": ghosted},
+        "Particles": [
+            {"sort_name": "electrons", "Np": 10, "n": 1.0, "q": -1.0,
+             "m": 1.0, "T": 0.02},
+            {"sort_name": "ions", "Np": 10, "n": 1.0, "q": 1.0,
+             "m": 100.0, "T": 0.02},
+        ],
+        "Presets": [
+            {"command": "SetMagneticField",
+             "field": {"name": "SetCoilsField",
+                       "coils": [{"z0": 1.0, "R": 1.5, "I": 0.05},
+                                 {"z0": 5.0, "R": 1.5, "I": 0.05}]}},
+            {"command": "SetParticles", "particles": "electrons",
+             "coordinate": {"name": "CoordinateInCylinder", "radius": 1.0,
+                            "height": 4.0},
+             "momentum": {"name": "MaxwellianMomentum"}},
+        ],
+        "StepPresets": [
+            {"command": "InjectParticles", "ionized": "ions",
+             "ejected": "electrons", "per_step_particles_num": 20,
+             "coordinate": {"name": "CoordinateInCylinder", "radius": 0.5,
+                            "height": 2.0},
+             "momentum_i": {"name": "MaxwellianMomentum"},
+             "momentum_e": {"name": "MaxwellianMomentum"}},
+            {"command": "RemoveParticles", "particles": "electrons",
+             "geometry": {"name": "CylinderGeometry", "radius": 1.8}},
+            {"command": "FieldsDamping",
+             "geometry": {"name": "CylinderGeometry", "radius": 1.6,
+                          "coefficient": 0.8}},
+        ],
+        "Diagnostics": [],
+    }
+
+
+def commands_path(name, card):
+    """Phase 15: :func:`mirror_config` for 3 steps on the card and on the
+    CPU, float32, on the default mass route: the Damped(E+B), Inj_* and
+    Rm_* columns present and finite and some injection seen; the tables
+    within ``TABLE_TOL``; the species counts equal step by step (where
+    they are not, the particles that one device removed and the other
+    kept are printed with their radii); ecsimcorr's kernels launch on the
+    card, none on the CPU."""
+    from xpic_tpu_torch.commands.remove_particles import RemoveParticles
+    from xpic_tpu_torch.diagnostics.compare import (
+        TABLES,
+        read_table,
+        table_errors,
+    )
+
+    removed = {}
+    execute = RemoveParticles.execute
+
+    def recording(self, t):
+        arr = self.species.arrays
+        before, r = arr.alive.cpu().numpy(), arr.r.cpu().numpy()
+        execute(self, t)
+        after = self.species.arrays.alive.cpu().numpy()
+        removed[run].append(r[before & ~after].astype(np.float64))
+
+    cols = ("Damped(E+B)", "Inj_ions", "Inj_electrons", "Rm_electrons",
+            "dE+dB+dK")
+    steps = 3
+    with tempfile.TemporaryDirectory(prefix="xpic_smoke_") as work:
+        runs = {}
+        RemoveParticles.execute = recording
+        try:
+            for run in ("cuda:0", "cpu"):
+                removed[run] = []
+                runs[run] = run_cli(os.path.join(work, run.split(":")[0]),
+                                    0, 0, steps, run, doc=mirror_config)
+        finally:
+            RemoveParticles.execute = execute
+        (out_g, sim_g, ms_g, lg), (out_c, sim_c, _, lc) = (runs["cuda:0"],
+                                                           runs["cpu"])
+        header, rows = read_table(os.path.join(out_g, "temporal",
+                                               "energy_conservation.txt"))
+        worst = {}
+        for table in TABLES:
+            errs = table_errors(table, out_c, out_g, n_cells=8 * 8 * 12,
+                                charge_scale=np.sqrt(8 * 8 * 12) / 0.5,
+                                dt=0.5)
+            worst[table] = max(errs.items(), key=lambda kv: kv[1])
+            log(f"    {table}: {errs}")
+        present = all(c in header for c in cols)
+        shown = {c: rows[:, header.index(c)].tolist() for c in cols
+                 if c in header}
+        log(f"[15 commands, card vs cpu] mirror machine (ecsimcorr, 8 x 8 x "
+            f"12, z ghosted, coils, InjectParticles, RemoveParticles, "
+            f"FieldsDamping) f32, {steps} steps: card ms/step "
+            f"{[round(v, 3) for v in ms_g]}; card columns {shown}; worst "
+            f"column per table {worst} (tol {TABLE_TOL}); counts (electrons,"
+            f" ions) card {sim_g.count_history} cpu {sim_c.count_history}; "
+            f"launches card {lg} cpu {lc} | {name} | {card}")
+        if sim_g.count_history != sim_c.count_history:
+            for step, (a, b) in enumerate(zip(removed["cuda:0"],
+                                              removed["cpu"]), start=1):
+                only_g = {tuple(x) for x in a} - {tuple(x) for x in b}
+                only_c = {tuple(x) for x in b} - {tuple(x) for x in a}
+                for who, pts in (("card", only_g), ("cpu", only_c)):
+                    for x in sorted(pts):
+                        log(f"    step {step}: removed on the {who} only: r "
+                            f"{x}, radius {np.hypot(x[0] - 2.0, x[1] - 2.0)!r}"
+                            f" (keep < 1.8)")
+        check(present and np.isfinite(rows).all()
+              and max(shown["Inj_ions"]) > 0.0,
+              f"the commands' energy columns {shown}")
+        check(all(e <= TABLE_TOL for _, e in worst.values()),
+              "the mirror machine's card tables differ from the CPU's")
+        check(sim_g.count_history == sim_c.count_history,
+              "the mirror machine's card counts differ from the CPU's")
+        check(all(lg[k] > 0 for k in CORR_KERNELS["free"])
+              and not any(lc.values()),
+              f"routing: card launches {lg}, CPU launches {lc}")
 
 
 def calibration_path(dev, card):
@@ -836,9 +1255,10 @@ def run_cli(work, side, ppc, steps, device, doc=None):
     """``runtime.cli.main`` on ``doc`` (default :func:`cli_config`) in
     ``work``.  Returns the output directory, the simulation it built,
     each step's time in ms (closed by a device synchronisation) and the
-    kernel launches of the run (counts set to 0 just before it).  An
-    ecsimcorr simulation also records each step's correct-solve
-    iterations and consistency norm (``correct_history``,
+    kernel launches of the run (counts set to 0 just before it).  The
+    simulation records each species' live count after every step
+    (``count_history``); an ecsimcorr simulation also each step's
+    correct-solve iterations and consistency norm (``correct_history``,
     ``norm_history``)."""
     from xpic_tpu_torch import kernels
     from xpic_tpu_torch import schemes
@@ -865,11 +1285,13 @@ def run_cli(work, side, ppc, steps, device, doc=None):
             step(t)
             sync()
             step_ms.append((time.perf_counter() - t0) * 1e3)
+            sim.count_history.append([sp.count() for sp in sim.species])
             if sim.scheme_name == "ecsimcorr":
                 sim.correct_history.append(sim.correct_ksp_iters)
                 sim.norm_history.append(sim.current_consistency_norm)
 
         sim.correct_history, sim.norm_history = [], []
+        sim.count_history = []
         sim.timestep_implementation = timed_step
         built.append(sim)
         return sim
@@ -980,13 +1402,8 @@ def check_ecsimcorr_run(mass, out, sim, launches, name, card, step_ms):
 
     tables = {t: read_table(os.path.join(out, "temporal", t))
               for t in TABLES}
-    h_ch, ch = tables["charge_conservation.txt"]
-    n_cells = SIDE ** 3
-    # The continuity norms against those of rho / dt (|q n| = 1 a cell).
-    charge = max(float(np.abs(ch[:, c]).max())
-                 / ((n_cells if h.startswith("N1") else np.sqrt(n_cells))
-                    / 1.5)
-                 for c, h in enumerate(h_ch) if h != "Time")
+    charge = charge_share(*tables["charge_conservation.txt"], SIDE ** 3,
+                          1.5)
     sp = sim.species[0]
     n = sp.count()
     ms = statistics.median(step_ms[1:])
@@ -1012,6 +1429,15 @@ def check_ecsimcorr_run(mass, out, sim, launches, name, card, step_ms):
     check(all(0.0 <= v < 0.1 for v in sim.norm_history),
           f"current-consistency norms {sim.norm_history}")
     check(charge <= CHARGE_TOL, "ecsimcorr does not conserve charge")
+
+
+def charge_share(header, rows, n_cells, dt):
+    """The largest charge-continuity norm of a table against the same
+    norm of rho / dt (|q n| = 1 a cell): n_cells / dt for the 1-norms,
+    sqrt(n_cells) / dt for the 2-norms."""
+    return max(float(np.abs(rows[:, c]).max())
+               / ((n_cells if h.startswith("N1") else np.sqrt(n_cells)) / dt)
+               for c, h in enumerate(header) if h != "Time")
 
 
 def fill_kernel(geom, dev, card, ks=(96, 112)):

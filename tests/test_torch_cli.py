@@ -176,10 +176,14 @@ def test_dtype_follows_xpic_x64(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("scheme", ["basic"])
-def test_unported_schemes_raise(tmp_path, scheme):
+def test_scheme_builds(tmp_path, scheme):
+    """The last scheme to be ported builds on the CPU in float64;
+    ``step_profile`` refuses it, since it times no phases."""
     cfg = Config.from_json(make_doc(tmp_path / "out", scheme))
-    with pytest.raises(NotImplementedError, match=scheme):
-        build_simulation(cfg, device="cpu")
+    sim = build_simulation(cfg, device="cpu")
+    assert sim.scheme_name == scheme and sim.dtype == torch.float64
+    with pytest.raises(ValueError, match="no phase timings"):
+        step_profile.profile_run(sim)
 
 
 def test_unknown_scheme_raises(tmp_path):
@@ -228,19 +232,38 @@ def test_step_profile_times_every_phase_and_diagnostic(tmp_path,
     assert rows.shape[0] == STEPS + 1
 
 
-@pytest.mark.parametrize("section,entry", [
-    ("StepPresets", {"command": "FieldsDamping"}),
-    ("Presets", {"command": "InjectParticles"}),
-    ("Diagnostics", {"diagnostic": "VelocityDistribution"}),
-    ("SimulationBackup", {"period": 1}),
+@pytest.mark.parametrize("section,entry,built", [
+    ("StepPresets", {"command": "FieldsDamping",
+                     "geometry": {"name": "CylinderGeometry",
+                                  "radius": 1.0}}, "FieldsDamping"),
+    ("Presets", {"command": "InjectParticles", "ionized": "electrons",
+                 "ejected": "electrons", "per_step_particles_num": 16,
+                 "coordinate": {"name": "CoordinateInBox"},
+                 "momentum_i": {"name": "MaxwellianMomentum"},
+                 "momentum_e": {"name": "MaxwellianMomentum"}},
+     "InjectParticles"),
+    ("Diagnostics", {"diagnostic": "VelocityDistribution",
+                     "particles": "electrons"}, "VelocityDistribution"),
+    ("SimulationBackup", {"diagnose_period": 1.5}, "SimulationBackup"),
 ], ids=["FieldsDamping", "InjectParticles", "VelocityDistribution",
         "SimulationBackup"])
-def test_unported_commands_and_diagnostics_raise(tmp_path, section, entry):
+def test_commands_and_diagnostics_initialise(tmp_path, section, entry,
+                                             built):
+    """Each command and diagnostic section of the JAX package builds and
+    initialises in the port."""
     doc = make_doc(tmp_path / "out")
     if section == "SimulationBackup":
         doc[section] = entry
     else:
         doc[section] = list(doc.get(section, [])) + [entry]
     sim = build_simulation(Config.from_json(doc), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sim.initialize()
+    sim.initialize()
+    names = [type(x).__name__ for x in sim.step_presets + sim.diagnostics]
+    n = sim.species[0].count()
+    sim.finalize()
+    if section == "Presets":
+        assert n == 8 * 6 ** 3 + 2 * 16
+    else:
+        assert built in names
+    if section == "SimulationBackup":
+        assert (tmp_path / "out" / "simulation_backup" / "0" / "E").is_file()

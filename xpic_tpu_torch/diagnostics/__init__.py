@@ -1,21 +1,17 @@
-"""Diagnostics: tables, field dumps, moments
+"""Diagnostics: tables, field dumps, moments, backup
 (counterpart of ``xpic_tpu/diagnostics/__init__.py``).
 
 ``default_diagnostics`` auto-appends Energy (EcsimcorrEnergy under
 ecsimcorr), ChargeConservation and MomentumConservation like the reference
 (src/interfaces/simulation.cpp:41-56); ``build_diagnostics`` dispatches
-the config ``Diagnostics`` section.  The port has FieldView and
-DistributionMoment; VelocityDistribution, LogView and the
-SimulationBackup section raise ``NotImplementedError`` until they are
-ported.
+the config ``Diagnostics`` section
+(src/diagnostics/builders/diagnostic_builder.cpp:17-59) and appends the
+``SimulationBackup`` section's checkpointer.
 """
 
 from __future__ import annotations
 
 from typing import Any, Mapping, Sequence
-
-# Diagnostics of the JAX package the port does not have yet.
-NOT_PORTED = ("VelocityDistribution", "LogView")
 
 
 def default_diagnostics(simulation) -> list:
@@ -32,23 +28,25 @@ def default_diagnostics(simulation) -> list:
 def build_diagnostics(simulation, infos: Sequence[Mapping[str, Any]]) -> list:
     from .distribution_moment import DistributionMoment
     from .field_view import FieldView
+    from .log_view import LogView
+    from .velocity_distribution import VelocityDistribution
 
+    table = {
+        "FieldView": FieldView,
+        "DistributionMoment": DistributionMoment,
+        "VelocityDistribution": VelocityDistribution,
+        "LogView": LogView,
+    }
     diags = []
     for info in infos or ():
         name = info.get("diagnostic")
-        if name == "FieldView":
-            diags.append(FieldView.from_json(simulation, info))
-        elif name == "DistributionMoment":
-            diags.append(DistributionMoment.from_json(simulation, info))
-        elif name in NOT_PORTED:
-            raise NotImplementedError(
-                f"diagnostic {name!r} is not ported to xpic_tpu_torch yet "
-                f"(ROADMAP A7)")
-        else:
+        if name not in table:
             raise ValueError(f"unknown diagnostic {name!r}")
+        diags.append(table[name].from_json(simulation, info))
 
-    if getattr(simulation.cfg, "backup", None):
-        raise NotImplementedError(
-            "SimulationBackup is not ported to xpic_tpu_torch yet "
-            "(ROADMAP A7)")
+    backup = getattr(simulation.cfg, "backup", None)
+    if backup:
+        from .simulation_backup import SimulationBackup
+
+        diags.append(SimulationBackup.from_json(simulation, backup))
     return diags

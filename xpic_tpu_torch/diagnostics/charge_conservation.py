@@ -52,7 +52,10 @@ class ChargeConservation:
     def diagnose(self, t: int) -> None:
         sim = self.simulation
         geom = sim.geom
-        if t == 0:
+        # Seed at the run's first diagnose: step 0, or the step that a
+        # restart from a backup starts at (the JAX package seeds at step
+        # 0 only, and its restart fails in ChargeConservation).
+        if t == sim.start:
             for i in range(len(sim.species)):
                 self.rho[i] = self._collect(i)
 

@@ -4,10 +4,10 @@
 Reference: src/diagnostics/energy.cpp.  Field energy is 0.5*||F||^2
 summed over the grid (no cell-volume factor, matching VecNorm);
 kinetic energy is 0.5*m*(n/Np)*sum p^2.  The conservation table lists
-per-step deltas and the closing dE+dB+dK column.  The port has no step
-preset with a source or sink term yet (InjectParticles, RemoveParticles
-and FieldsDamping are not ported), so the table has no such columns.
-The ecsimcorr subclass appends the per-species work-bookkeeping columns.
+per-step deltas plus the step presets' source and sink terms
+(FieldsDamping, InjectParticles, RemoveParticles) and the closing
+dE+dB+dK column.  The ecsimcorr subclass appends the per-species
+work-bookkeeping columns.
 """
 
 from __future__ import annotations
@@ -99,7 +99,10 @@ class Energy:
             self.std_K[i] = frac * np.sqrt(abs(s) / n)
 
     def diagnose(self, t: int) -> None:
-        if t == 0:
+        # Seed at the run's first diagnose: step 0, or the step that a
+        # restart from a backup starts at (the JAX package seeds at step
+        # 0 only, and its restart fails in ChargeConservation).
+        if t == self.simulation.start:
             self.calculate()
         self.E0, self.B0v, self.K0 = self.E, self.B, list(self.K)
         self.calculate()
@@ -133,6 +136,27 @@ class Energy:
         for i, sp in enumerate(self.simulation.species):
             tb.add(13, "dK_" + sp.params.sort_name, self.K[i] - self.K0[i])
             dK += self.K[i] - self.K0[i]
+
+        # Source/sink terms from step presets (reference: energy.cpp:160-180).
+        from ..commands.fields_damping import FieldsDamping
+        from ..commands.inject_particles import InjectParticles
+        from ..commands.remove_particles import RemoveParticles
+
+        for command in self.simulation.step_presets:
+            if isinstance(command, FieldsDamping):
+                tb.add(13, "Damped(E+B)", command.get_damped_energy())
+                dF += command.get_damped_energy()
+            if isinstance(command, InjectParticles):
+                tb.add(13, "Inj_" + command.get_ionized_name(),
+                       command.get_ionized_energy())
+                tb.add(13, "Inj_" + command.get_ejected_name(),
+                       command.get_ejected_energy())
+                dK -= (command.get_ionized_energy()
+                       + command.get_ejected_energy())
+            if isinstance(command, RemoveParticles):
+                tb.add(13, "Rm_" + command.get_particles_name(),
+                       command.get_removed_energy())
+                dK += command.get_removed_energy()
         self._dK = dK
         tb.add(13, "dE+dB+dK", dF + dK)
 

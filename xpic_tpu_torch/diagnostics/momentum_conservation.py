@@ -57,7 +57,10 @@ class MomentumConservation:
         sim = self.simulation
         dt = sim.geom.dt
         self._calculate()
-        if t == 0:
+        # Seed at the run's first diagnose: step 0, or the step that a
+        # restart from a backup starts at (the JAX package seeds at step
+        # 0 only, and its restart fails in ChargeConservation).
+        if t == sim.start:
             for i in range(len(sim.species)):
                 self.P0[i] = self.P1[i].copy()
 

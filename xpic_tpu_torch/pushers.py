@@ -1,7 +1,8 @@
-"""Particle pushers (counterpart of ``xpic_tpu/pushers.py``): the
-electromagnetic Boris ``update_vEB``, the implicit Crank-Nicolson push
-and the drift-kinetic guiding-center push.  ``p`` is velocity in units
-of c (non-relativistic)."""
+"""Particle pushers (counterpart of ``xpic_tpu/pushers.py``): the Boris
+magnetic rotation variants M/B/C1/C2 and the electromagnetic ``vEB``
+update (reference: src/algorithms/boris_push.cpp:19-91), the implicit
+Crank-Nicolson push and the drift-kinetic guiding-center push.  ``p`` is
+velocity in units of c (non-relativistic)."""
 
 from __future__ import annotations
 
@@ -9,6 +10,63 @@ import dataclasses
 from typing import Callable
 
 import torch
+
+
+def _norm(v):
+    return torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
+
+
+def _normalized(v, eps=1e-300):
+    return v / torch.clamp(_norm(v), min=eps)
+
+
+def update_r(dt, r, p):
+    """r += p * dt (reference: BorisPush::update_r, boris_push.cpp:20-23)."""
+    return r + p * dt
+
+
+def _rotate(v, B, sin_t, cos_t):
+    """v -> v_par + cos*v_perp + sin*(b x v_perp) around unit b = B/|B|
+    (boris_push.cpp:85-91)."""
+    b = _normalized(B)
+    v_par = torch.sum(v * b, dim=-1, keepdim=True) * b
+    v_t = v - v_par
+    return v_par + cos_t * v_t + sin_t * torch.linalg.cross(b, v_t)
+
+
+def _theta(dt, qm, B):
+    """theta = -qm * |B| * dt (boris_push.cpp:60-63)."""
+    return -qm * _norm(B) * dt
+
+
+def update_vM(dt, qm, p, B):
+    """Exact-rotation variant (theta = -qm |B| dt), with (sin, cos)
+    renormalized so that the rotation stays orthogonal to rounding, as
+    in the JAX package."""
+    t = _theta(dt, qm, B)
+    s, c = torch.sin(t), torch.cos(t)
+    renorm = 1.0 / torch.sqrt(s * s + c * c)
+    return _rotate(p, B, s * renorm, c * renorm)
+
+
+def update_vB(dt, qm, p, B):
+    """Classic Boris half-angle tangent variant (boris_push.cpp:65-70)."""
+    t = _theta(dt, qm, B)
+    d = 1.0 + 0.25 * t * t
+    return _rotate(p, B, t / d, (1.0 - 0.25 * t * t) / d)
+
+
+def update_vC1(dt, qm, p, B):
+    """Chin C1 variant (boris_push.cpp:72-76)."""
+    t = _theta(dt, qm, B)
+    return _rotate(p, B, t * torch.sqrt(1.0 - 0.25 * t * t),
+                   1.0 - 0.5 * t * t)
+
+
+def update_vC2(dt, qm, p, B):
+    """Chin C2 variant (boris_push.cpp:78-82)."""
+    t = _theta(dt, qm, B)
+    return _rotate(p, B, t, torch.sqrt(1.0 - t * t))
 
 
 def update_vEB(dt, qm, p, E, B):
@@ -24,12 +82,12 @@ def update_vEB(dt, qm, p, E, B):
     return p + a + (bxw + 0.5 * torch.linalg.cross(b, bxw)) / (1.0 + 0.25 * b2)
 
 
-def _norm(v):
-    return torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
-
-
-def _normalized(v, eps=1e-300):
-    return v / torch.clamp(_norm(v), min=eps)
+BORIS_VARIANTS = {
+    "M": update_vM,
+    "B": update_vB,
+    "C1": update_vC1,
+    "C2": update_vC2,
+}
 
 
 @dataclasses.dataclass

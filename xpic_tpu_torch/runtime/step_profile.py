@@ -139,7 +139,11 @@ def device_window(fns, device: torch.device, after=None) -> dict:
 
 def profile_run(sim) -> dict:
     """Run ``sim`` (built, not initialized) to its end; the last
-    ``WINDOW`` steps under ``torch.profiler``."""
+    ``WINDOW`` steps under ``torch.profiler``.  A ``basic`` simulation
+    raises ``ValueError``: its scheme times no phases."""
+    if sim.scheme_name == "basic":
+        raise ValueError("the basic scheme records no phase timings, so "
+                         "step_profile has no phases to report for it")
     if sim.scheme_name == "eccapfim":
         return _profile_eccapfim(sim)
     sync = _sync(sim.device)

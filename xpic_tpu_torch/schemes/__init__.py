@@ -1,9 +1,8 @@
 """Time-integration schemes (counterpart of ``xpic_tpu/schemes/__init__.py``).
 
 ``build_simulation`` dispatches on the config ``Simulation`` key like the
-reference factory (src/interfaces/simulation.cpp:160-182).  The port has
-``ecsim``, ``ecsimcorr`` and ``eccapfim``; ``basic`` raises
-``NotImplementedError`` until it is ported.
+reference factory (src/interfaces/simulation.cpp:160-182): ``basic``,
+``ecsim``, ``ecsimcorr`` and ``eccapfim``.
 
 Device and dtype: the entry points run on the card.  ``device=None``
 means ``cuda:0`` and raises where there is no CUDA device: a run is put
@@ -23,11 +22,6 @@ import torch
 
 from ..config import Config
 
-# Schemes of the JAX package the port does not have yet, and their
-# ROADMAP items.
-NOT_PORTED = {"basic": "A8"}
-
-
 def default_dtype() -> torch.dtype:
     return torch.float32 if os.environ.get("XPIC_X64", "1") == "0" \
         else torch.float64
@@ -44,15 +38,13 @@ def resolve_device(device=None) -> torch.device:
 
 
 def build_simulation(cfg: Config, device=None, dtype=None, mass=None):
+    from .basic import BasicSimulation
     from .eccapfim import EccapfimSimulation
     from .ecsim import EcsimSimulation
     from .ecsimcorr import EcsimcorrSimulation
 
-    if cfg.scheme in NOT_PORTED:
-        raise NotImplementedError(
-            f"simulation scheme {cfg.scheme!r} is not ported to "
-            f"xpic_tpu_torch yet (ROADMAP {NOT_PORTED[cfg.scheme]})")
-    table = {"ecsim": EcsimSimulation, "ecsimcorr": EcsimcorrSimulation,
+    table = {"basic": BasicSimulation, "ecsim": EcsimSimulation,
+             "ecsimcorr": EcsimcorrSimulation,
              "eccapfim": EccapfimSimulation}
     if cfg.scheme not in table:
         raise ValueError(f"unknown simulation scheme: {cfg.scheme!r}")
