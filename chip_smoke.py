@@ -10,7 +10,9 @@ config-driven path (``python -m xpic_tpu_torch cfg.json``) at the same
 size for an ECSIM, an eccapfim, an ecsimcorr (on both mass routes) and
 a ``basic`` config, checks the card's results against the CPU's at a
 smaller size, runs the calibration path (the primitive-rate probe and
-the roofline calibration) and the step presets of the mirror machine.
+the roofline calibration) and the step presets of the mirror machine,
+then the float64 path of all four schemes, the schemes' default dtype
+(``XPIC_X64`` unset), through the kernels' float64 instantiations.
 Phases:
 
 1. device: card name and power limit, the IEEE float32 pins;
@@ -87,7 +89,28 @@ Phases:
     ghosted z, two coils, InjectParticles, RemoveParticles, cylinder
     FieldsDamping), 3 steps on the card and on the CPU: the source and
     sink columns present and finite with some injection, tables within
-    1e-4, equal counts step by step, ecsimcorr's kernels on the card.
+    1e-4, equal counts step by step, ecsimcorr's kernels on the card;
+16. the float64 kernels (``cheb_step_f64``, ``slot_gather_f64``,
+    ``segment_fields_f64``, ``ecsim_fill_f64``) against their float64
+    twins on phase 3's operands cast to float64 (K1 on its three fields,
+    K5 and K7 at K = 96 and 112, K6 at K' = 32 of 96, K' = 96 and on
+    the long moves): within 1e-12 of the output's largest magnitude, two
+    calls bitwise equal, timed beside the twin and the bound (float64
+    operations at 34 TFLOP/s); the float32 fill kernel and its twin
+    each against the float64 product of the float32 operands;
+17. the float64 paths at 32^3 x 50 ppc: ``runtime.cli.main`` with
+    ``XPIC_X64`` unset on the ECSIM, ecsimcorr, eccapfim and ``basic``
+    configs (1 warm-up + 2 timed steps), then 1 + 3 fused ECSIM steps
+    on phase 4's state: each path's float64 kernels launch and no
+    other (no float32 kernel; no K2 or K3: float64 migrates through the
+    global sort; ``basic`` none), the iterations of ``ITERS_F64``, the
+    energy identity of ECSIM and ecsimcorr within 1e-6 of the total
+    energy, charge continuity (ecsimcorr, ``basic``) within 1e-5 of
+    rho / dt, ``basic``'s energy within 2e-5 of wK_0 a step;
+18. the configs and sizes of phases 7, 9, 11 and 14 in float64, card
+    against CPU: tables within 1e-9 of each column's scale, equal
+    iterations of every solver and equal counts step by step, step-0
+    dumps bitwise.
 
 Phase 3 also holds the segment-field kernel against its twin on the
 drifted 32^3 x 50 ppc state (K = 96) with moves of up to 0.9 cell a
@@ -105,17 +128,20 @@ config for 6 steps and the phase-10 config for 6 steps on each mass
 route through ``xpic_tpu_torch.runtime.step_profile``.
 
 Exits non-zero on any failure, and without CUDA.  The last line is
-``{"ok": true, "device": {...}}``; the line before it lists each kernel
-with its launches on the fused path, the ECSIM config-driven path, the
-eccapfim path, the two ecsimcorr runs, the calibration path and the
-``basic`` path (``launches_basic``), its error against its twin, its
-times (``ms``, ``call_ms``), its twin's and its bound.  The ``prims``
+``{"ok": true, "device": {...}}``; the line before it lists each kernel,
+the four float64 entry points as rows of their own (``cheb_step_f64``,
+...), with its launches on the fused path, the ECSIM config-driven path,
+the eccapfim path, the two ecsimcorr runs, the calibration path, the
+``basic`` path (``launches_basic``) and each float64 path of phase 17
+(``launches_f64_<path>``), its error against its twin, its times
+(``ms``, ``call_ms``), its twin's and its bound.  The ``prims``
 row's times are the copy probe's (with ``copy_``'s as ``library_ms``),
 its error the largest of the six, and ``probes`` holds each probe's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -161,9 +187,17 @@ BASIC_PARTS = {
 # counted from cheb_step.cu's body: a first sweep of 46, ten middle
 # sweeps of 33 and a last sweep of 1 (x += d).
 CHEB_FLOPS = 46 + 33 * 10 + 1
-# H100 SXM peaks (vendor datasheet): HBM bytes/s, float32
+# H100 SXM peaks (vendor datasheet): HBM bytes/s, float32 and float64
 # FLOP/s outside the tensor cores.
-HBM_BPS, F32_FLOPS = 3.35e12, 67e12
+HBM_BPS, F32_FLOPS, F64_FLOPS = 3.35e12, 67e12, 34e12
+# The float64 kernels against their float64 twins: within 1e-12 of the
+# output's largest magnitude (sums in another order, FMAs).
+F64_TOL = 1e-12
+# The float64 paths at 32^3 x 50 ppc: one warm-up step, then timed ones
+# (phase 17); the card against the CPU (phase 18) within 1e-9 of each
+# table column's scale; the energy identity of ECSIM and ecsimcorr
+# within 1e-6 of the total energy.
+F64_STEPS, F64_TABLE_TOL, F64_ENERGY_TOL = 2, 1e-9, 1e-6
 KERNELS = {
     # name: (source, replaces)
     "cheb_step": ("xpic_tpu_torch/csrc/cheb_step.cu",
@@ -197,6 +231,23 @@ CORR_KERNELS = {
 }
 # The basic path runs the neighbour exchange's kernels and no other.
 BASIC_KERNELS = ("rebin_extract", "rebin_place")
+# The float64 paths' kernels (phase 17): each runs these and no other;
+# float64 migrates through the global sort, so K2 and K3 do not launch.
+F64_PATH_KERNELS = {
+    "cli": ("cheb_step_f64", "slot_gather_f64", "ecsim_fill_f64"),
+    "ecsimcorr": ("cheb_step_f64", "slot_gather_f64", "ecsim_fill_f64"),
+    "fused": ("cheb_step_f64", "slot_gather_f64", "ecsim_fill_f64"),
+    "eccapfim": ("cheb_step_f64", "segment_fields_f64"),
+    "basic": (),
+}
+# The float64 paths' iterations at 32^3 x 50 ppc, step by step (phase
+# 17: the warm-up step first; GMRES to 1e-7, eccapfim's outer solve to
+# the reference's budgets), as the float64 kernels gave them, pinned
+# beside phase 18's equal iterations on the card and the CPU, under the
+# rule of ITERS.
+ITERS_F64 = {"cli ksp": [7, 7, 6], "ecsimcorr ksp": [6, 6, 6],
+             "ecsimcorr correct": [4, 4, 4], "eccapfim outer": [10, 9, 10],
+             "fused ksp": [6, 6, 6]}
 
 
 def log(msg: str) -> None:
@@ -226,11 +277,12 @@ def kernel_times(fn) -> dict:
     return dict(ms=time_ms(fn), call_ms=call_ms(fn, torch.device("cuda", 0)))
 
 
-def bound(n_bytes: float, n_flops: float) -> dict:
+def bound(n_bytes: float, n_flops: float, flops=F32_FLOPS) -> dict:
     """The least time the card could take: the larger of the bytes over
-    the HBM rate and the float32 operations over the float32 peak."""
+    the HBM rate and the operations over the peak ``flops`` of their type
+    (default float32)."""
     t_bytes = n_bytes / HBM_BPS * 1e3
-    t_ops = n_flops / F32_FLOPS * 1e3
+    t_ops = n_flops / flops * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -591,15 +643,40 @@ def main() -> None:
     # -- 15. the commands and their energy columns, card against CPU -------
     commands_path(name, card)
 
+    # -- 16. the float64 kernels against their float64 twins ---------------
+    f64_rows = f64_kernels(geom, dev, card)
+
+    # -- 17. the float64 paths at full width --------------------------------
+    f64_launches, f64_k = f64_paths(name, card, dev, geom)
+    # K5's and K7's rows at the K the ECSIM run ended with
+    for kname, fn in (("slot_gather_f64", gather_kernel),
+                      ("ecsim_fill_f64", fill_kernel)):
+        if f64_k not in f64_rows[kname]:
+            f64_rows[kname].update(fn(geom, dev, card, (f64_k,),
+                                      dtype=torch.float64))
+        report[kname] = f64_rows[kname][f64_k]
+    report["cheb_step_f64"] = f64_rows["cheb_step_f64"]
+    report["segment_fields_f64"] = f64_rows["segment_fields_f64"]
+
+    # -- 18. the float64 paths, card against CPU ------------------------------
+    f64_card_vs_cpu(card)
+
     if "--profile" in sys.argv[1:]:
         profile_paths(name, card, dev, lambda: ecsim_multi_step(
             E, B, B0, sp, geom, slots, n_steps=2, **KW))
 
     rows = []
-    for kname, (src, repl) in KERNELS.items():
+    for kname in kernels.SIGNATURES:
+        base = kname.removesuffix(kernels.F64)
+        src, repl = KERNELS[base]
         own = {"segment_fields": fim_launches,
                "ecsim_fill": corr_launches["blocks"],
-               "prims": cal_launches}.get(kname, launches)
+               "prims": cal_launches,
+               "cheb_step_f64": f64_launches["cli"],
+               "slot_gather_f64": f64_launches["cli"],
+               "ecsim_fill_f64": f64_launches["cli"],
+               "segment_fields_f64": f64_launches["eccapfim"]}.get(
+                   kname, launches)
         row = dict(name=kname, route="cuda", source=src, replaces=repl,
                    launches=own[kname], launches_fused=launches[kname],
                    launches_cli=cli_launches[kname],
@@ -607,7 +684,9 @@ def main() -> None:
                    launches_ecsimcorr_free=corr_launches["free"][kname],
                    launches_ecsimcorr_blocks=corr_launches["blocks"][kname],
                    launches_probe=cal_launches[kname],
-                   launches_basic=basic_launches[kname], library_ms=None)
+                   launches_basic=basic_launches[kname], library_ms=None,
+                   **{f"launches_f64_{path}": n[kname]
+                      for path, n in f64_launches.items()})
         row.update(report[kname])
         if kname == "rebin_place":
             row["also_replaces"] = ["xpic_tpu/ops/neighbor_rebin.py:496",
@@ -1003,6 +1082,291 @@ def commands_path(name, card):
               f"routing: card launches {lg}, CPU launches {lc}")
 
 
+def f64_kernels(geom, dev, card):
+    """Phase 16: the four float64 kernels against their float64 twins on
+    phase 3's operands cast to float64 (K1 on its three fields, K5 and
+    K7 at K = 96 and 112, K6 at K' = 32 of 96, K' = 96 and on the long
+    moves), each within ``F64_TOL`` of its output's largest magnitude,
+    two calls bitwise equal, timed beside its twin and its bound (bytes
+    twice the float32 operands', operations over the float64 peak).  K7
+    also holds the float32 kernel and the float32 twin against its
+    float64 product.  Returns the rows: K1's and K6's, and K5's and K7's
+    by K."""
+    f64 = torch.float64
+    return {"cheb_step_f64": cheb_kernel(geom, dev, card, f64),
+            "slot_gather_f64": gather_kernel(geom, dev, card, (96, 112),
+                                             f64),
+            "segment_fields_f64": segment_kernel(geom, dev, card,
+                                                 f64)["segment_fields"],
+            "ecsim_fill_f64": fill_kernel(geom, dev, card, (96, 112), f64)}
+
+
+def gather_kernel(geom, dev, card, ks, dtype):
+    """The slot gather on phase 3's state and field at each K of ``ks``
+    (``slot_kernels``' operands, cast to ``dtype``): against its twin
+    (``GATHER_TOL``, float64 ``F64_TOL``), two calls bitwise equal.
+    Returns the rows by K."""
+    from xpic_tpu_torch import kernels
+    from xpic_tpu_torch.convert import state_from_numpy
+    from xpic_tpu_torch.ops.binning import bin_state, drift_state, rebin
+    from xpic_tpu_torch.ops.ecsim_blocks import gather_slots
+    from xpic_tpu_torch.ops.ecsim_kernel import (
+        ecsim_gather,
+        ecsim_gather_plain,
+    )
+    from xpic_tpu_torch.ops.gather_scatter import cell_t
+
+    f64 = dtype == torch.float64
+    tag, tol, flops = (("16 f64 kernels", F64_TOL, F64_FLOPS) if f64
+                       else ("3 kernels", GATHER_TOL, F32_FLOPS))
+    rng = np.random.default_rng(7)  # slot_kernels' draws, in its order
+    shape = (3,) + geom.shape
+    rng.standard_normal(shape)
+    x = rng.standard_normal(shape)
+    rows = {}
+    for slots in ks:
+        *_, r, p, alive = bench_state(geom, PPC, VTH, seed=1)
+        xt, _, _, sp = state_from_numpy(x, np.zeros(1), np.zeros(1), r, p,
+                                        alive, device=dev,
+                                        dtype=torch.float32)
+        st = rebin(drift_state(bin_state(sp, geom, slots), geom), geom)
+        t = cell_t(geom, st.r).to(dtype)
+        Fg = gather_slots(xt, geom).to(dtype)
+        kname = kernels.entry("slot_gather", t)
+        E_k = ecsim_gather(t, Fg)
+        E_2 = ecsim_gather(t, Fg)
+        E_p = ecsim_gather_plain(t, Fg)
+        torch.cuda.synchronize()
+        same = torch.equal(E_k, E_2)
+        err = float((E_k - E_p).abs().max())
+        rel = err / float(E_p.abs().max())
+        n_valid = int(st.valid.sum())
+        # Read t and Fg, write E_p; ~75 operations per live slot.
+        row = rows[slots] = dict(
+            max_abs_err=err, **kernel_times(lambda: ecsim_gather(t, Fg)),
+            plain_ms=time_ms(lambda: ecsim_gather_plain(t, Fg)),
+            **bound(t.element_size() * (2 * t.numel() + Fg.numel()),
+                    75 * n_valid, flops))
+        log(f"[{tag}] {kname} K={slots}: max|d|/max|E_p| = {rel:.3e} (tol "
+            f"{tol}), two calls bitwise equal: {same} | {row['ms']:.4f} ms "
+            f"({row['call_ms']:.4f} a call) vs twin {row['plain_ms']:.4f} "
+            f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), share "
+            f"{row['bound_ms'] / row['ms']:.3f} | {card}")
+        check(np.isfinite(rel) and rel <= tol,
+              f"{kname} differs from its twin by {rel:.3e} at K={slots}")
+        check(same, f"two {kname} calls differ at K={slots}")
+    return rows
+
+
+@contextlib.contextmanager
+def float64_runs():
+    """The runs inside take the schemes' default dtype, float64:
+    ``XPIC_X64`` unset, as a user's first command has it, and put back
+    after."""
+    saved = os.environ.pop("XPIC_X64", None)
+    try:
+        yield
+    finally:
+        if saved is not None:
+            os.environ["XPIC_X64"] = saved
+
+
+def f64_launch_gate(path, launches):
+    """Phase 17 and 18's launch gate of one float64 path on the card:
+    its float64 kernels launch, no other kernel does (no float32
+    kernel, and no K2 or K3: float64 migrates through the global
+    sort)."""
+    want = F64_PATH_KERNELS[path]
+    check(all(launches[k] > 0 for k in want)
+          and not any(n for k, n in launches.items() if k not in want),
+          f"the float64 {path} path's launches {launches}")
+
+
+def f64_paths(name, card, dev, geom):
+    """Phase 17: ``python -m xpic_tpu_torch cfg.json`` with ``XPIC_X64``
+    unset (float64) at 32^3 x 50 ppc for ECSIM (:func:`cli_config`),
+    ecsimcorr (:func:`ecsimcorr_config`: both mass settings assemble in
+    float64, so one run), eccapfim (``turns.eccapfim_config``) and
+    ``basic`` (:func:`basic_config`), 1 warm-up + ``F64_STEPS`` timed
+    steps each, then 1 + 3 fused ECSIM steps on phase 4's state in
+    float64.  Gates: the launches of ``F64_PATH_KERNELS``; the run in
+    float64; the iterations of ``ITERS_F64``; ECSIM and ecsimcorr's
+    energy identity within ``F64_ENERGY_TOL`` of the total energy a
+    step; ecsimcorr and ``basic`` conserve charge within ``CHARGE_TOL``
+    of rho / dt; ``basic``'s |dE+dB+dK| within ``BASIC_ENERGY_TOL`` of
+    wK_0 a step.  Returns the launches by path and the K of the ECSIM
+    run."""
+    from xpic_tpu_torch import kernels
+    from xpic_tpu_torch.benchmarks.turns import eccapfim_config
+    from xpic_tpu_torch.convert import state_from_numpy
+    from xpic_tpu_torch.diagnostics.compare import TABLES, read_table
+    from xpic_tpu_torch.parallel.step import ecsim_multi_step
+
+    launches = {}
+    docs = {"cli": cli_config, "ecsimcorr": ecsimcorr_config,
+            "eccapfim": eccapfim_config, "basic": basic_config}
+    steps = F64_STEPS + 1
+    with float64_runs(), tempfile.TemporaryDirectory(
+            prefix="xpic_smoke_") as work:
+        for path, doc in docs.items():
+            out, sim, step_ms, launches[path] = run_cli(
+                os.path.join(work, path), SIDE, PPC, steps, "cuda:0",
+                doc=doc)
+            tables = {t: read_table(os.path.join(out, "temporal", t))
+                      for t in TABLES
+                      if os.path.exists(os.path.join(out, "temporal", t))}
+            h_en, en = tables["energy.txt"]
+            h_ec, ec = tables["energy_conservation.txt"]
+            total = en[:, 1:1 + (len(h_en) - 1) // 2].sum(axis=1)
+            closure = np.abs(ec[:, h_ec.index("dE+dB+dK")])
+            dt = BASIC_DT if path == "basic" else 1.5
+            iters = {"ksp": getattr(sim, "ksp_history", None),
+                     "correct": sim.correct_history or None,
+                     "outer": getattr(sim, "outer_history", None),
+                     "cn": getattr(sim, "cn_history", None)}
+            iters = {k: list(v) for k, v in iters.items() if v}
+            stats = dict(energy=float((closure / total).max()))
+            if path in ("ecsimcorr", "basic"):
+                stats["charge"] = charge_share(
+                    *tables["charge_conservation.txt"], SIDE ** 3, dt)
+            if path == "basic":
+                stats["energy"] = float(closure[1:].max()
+                                        / en[0, h_en.index("wK_electrons")])
+            sp = sim.species[0]
+            ms = statistics.median(step_ms[1:])
+            log(f"[17 f64 paths] {path}: python -m xpic_tpu_torch cfg.json "
+                f"(XPIC_X64 unset) {SIDE}^3 x {PPC} ppc {sim.E.dtype}, 1 + "
+                f"{F64_STEPS} steps, K={sp.slots}, {sp.count()} particles: "
+                f"ms/step median {ms:.3f} (per step "
+                f"{[round(v, 3) for v in step_ms]}, the first a warm-up), "
+                f"iterations {iters}, "
+                f"{ {k: f'{v:.3e}' for k, v in stats.items()} } "
+                f"(energy: |dE+dB+dK| over the total energy, basic's over "
+                f"wK_0; charge: continuity over rho/dt), launches "
+                f"{launches[path]} | {name} | {card}")
+            f64_launch_gate(path, launches[path])
+            check(sim.E.dtype == torch.float64,
+                  f"the {path} run took {sim.E.dtype}")
+            check(all(np.isfinite(rows).all() and rows.shape[0] == steps + 1
+                      for _, rows in tables.values()),
+                  f"a float64 {path} table row is not finite, or missing")
+            for key, want in ITERS_F64.items():
+                if key.startswith(path + " "):
+                    got = iters[key.split(" ", 1)[1]]
+                    check(got == want,
+                          f"float64 {key} iterations {got}, not {want}")
+            if path in ("cli", "ecsimcorr"):
+                check(stats["energy"] <= F64_ENERGY_TOL,
+                      f"the float64 {path} energy identity fails")
+            if path == "basic":
+                check(stats["energy"] <= BASIC_ENERGY_TOL,
+                      "float64 basic's energy error a step")
+            if "charge" in stats:
+                check(stats["charge"] <= CHARGE_TOL,
+                      f"float64 {path} does not conserve charge")
+            if path == "cli":
+                cli_k = sp.slots
+
+    # The fused steps on phase 4's state (bench.py's ecsim_f64 workload).
+    E, B, B0, r, p, alive = bench_state(geom, PPC, VTH)
+    slots = max(8, int(PPC * 1.6) // 8 * 8)
+    E, B, B0, sp = state_from_numpy(E, B, B0, r, p, alive, device=dev,
+                                    dtype=torch.float64)
+    ecsim_multi_step(E, B, B0, sp, geom, slots, n_steps=1, **KW)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    E1, B1, sp1, iters = ecsim_multi_step(E, B, B0, sp, geom, slots,
+                                          n_steps=3, **KW)
+    end.record()
+    end.synchronize()
+    launches["fused"] = dict(kernels.LAUNCHES)
+    ms = start.elapsed_time(end) / 3
+    log(f"[17 f64 paths] fused: ecsim_multi_step {SIDE}^3 x {PPC} ppc "
+        f"float64, K={slots}, 1 + 3 steps: step_ms={ms:.3f} "
+        f"particle_steps_per_s={len(r) / ms * 1e3:.4e} KSP per step "
+        f"{iters.tolist()}, launches {launches['fused']} | {name} | {card}")
+    f64_launch_gate("fused", launches["fused"])
+    check(bool(torch.isfinite(E1).all() and torch.isfinite(B1).all()
+               and torch.isfinite(sp1.p).all()), "non-finite float64 state")
+    want = ITERS_F64["fused ksp"]
+    check(iters.tolist() == want,
+          f"float64 fused KSP iterations {iters.tolist()}, not {want}")
+    return launches, cli_k
+
+
+def f64_card_vs_cpu(card):
+    """Phase 18: the configs and sizes of phases 7, 9, 11 and 14 (ECSIM
+    and ``basic`` at 16^3 x 20 ppc, eccapfim and ecsimcorr at 8^3 x 20
+    ppc, 2 steps) in float64 (``XPIC_X64`` unset), on the card and on
+    the CPU: the tables within ``F64_TABLE_TOL`` of each column's scale
+    (the same tables and scales as those phases), every solver's
+    iterations equal step by step, equal particle counts, the step-0
+    dumps bitwise equal; the float64 kernels launch on the card (and no
+    other), none on the CPU."""
+    from xpic_tpu_torch.benchmarks.turns import eccapfim_config
+    from xpic_tpu_torch.diagnostics.compare import TABLES, table_errors
+
+    cases = (("cli", cli_config, 16), ("basic", basic_config, 16),
+             ("eccapfim", eccapfim_config, 8),
+             ("ecsimcorr", ecsimcorr_config, 8))
+    with float64_runs(), tempfile.TemporaryDirectory(
+            prefix="xpic_smoke_") as work:
+        for path, doc, side in cases:
+            runs = {}
+            for device in ("cuda:0", "cpu"):
+                runs[device] = run_cli(
+                    os.path.join(work, path, device.split(":")[0]), side,
+                    20, 2, device, doc=doc)
+            (out_g, sim_g, _, lg), (out_c, sim_c, _, lc) = (runs["cuda:0"],
+                                                            runs["cpu"])
+            dt = BASIC_DT if path == "basic" else 1.5
+            extra = {"cli": {}, "basic": dict(dt=dt)}.get(path, {})
+            tables = (("energy.txt", "energy_conservation.txt",
+                       "momentum_conservation.txt") if path == "cli"
+                      else TABLES)
+            if path != "cli":
+                extra["charge_scale"] = np.sqrt(side ** 3) / dt
+            worst = {}
+            for table in tables:
+                errs = table_errors(table, out_c, out_g, n_cells=side ** 3,
+                                    **extra)
+                worst[table] = max(errs.items(), key=lambda kv: kv[1])
+            hists = {k: (getattr(sim_g, k), getattr(sim_c, k))
+                     for k in ("ksp_history", "correct_history",
+                               "outer_history", "cn_history",
+                               "count_history")
+                     if getattr(sim_g, k, None)}
+            dumps, differ = 0, []
+            for root, dirs, files in os.walk(out_c):
+                dirs[:] = [d for d in dirs
+                           if d not in ("temporal", "simulation_backup")]
+                if not files or os.path.basename(root) == "out":
+                    continue
+                first = sorted(files)[0]
+                rel = os.path.relpath(os.path.join(root, first), out_c)
+                dumps += 1
+                with open(os.path.join(out_c, rel), "rb") as a, \
+                        open(os.path.join(out_g, rel), "rb") as b:
+                    if a.read() != b.read():
+                        differ.append(rel)
+            log(f"[18 card vs cpu, f64] {path} {side}^3 x 20 ppc float64, 2 "
+                f"steps: worst column per table {worst} (tol "
+                f"{F64_TABLE_TOL}); card, cpu {hists}; step-0 dumps "
+                f"{dumps}, differing {differ}; launches card {lg} cpu {lc} "
+                f"| {card}")
+            f64_launch_gate(path, lg)
+            check(not any(lc.values()), f"CPU launches {lc}")
+            check(all(e <= F64_TABLE_TOL for _, e in worst.values()),
+                  f"float64 {path} card tables differ from the CPU's")
+            check(all(g == c for g, c in hists.values()),
+                  f"float64 {path} iterations or counts differ between "
+                  f"card and CPU")
+            check(not differ, f"float64 {path} step-0 dumps differ")
+
+
 def calibration_path(dev, card):
     """Phase 12: the calibration path through its two entry points (the
     launch counts set to 0 just before), then each probe of the ``prims``
@@ -1010,7 +1374,6 @@ def calibration_path(dev, card):
     launches and the ``prims`` row: the copy probe's times, ``copy_``'s
     as ``library_ms``, the largest error of the six and every probe's
     numbers under ``probes``."""
-    import contextlib
     import io
 
     from xpic_tpu_torch import kernels
@@ -1075,12 +1438,14 @@ def calibration_path(dev, card):
         library_ms=statistics.median(turns["copy_"]), probes=probes)
 
 
-def cheb_kernel(geom, dev, card):
+def cheb_kernel(geom, dev, card, dtype=torch.float32):
     """Phase 3 for the Chebyshev apply: against its twin at degree 12 on
     the main paths' 32^3 field (the row), on a non-cubic field with
     ghosted, periodic and reflective axes, and on a 64^3 field, more
     elements than the card holds threads at once (the grid-stride loop);
-    two applies of one input bitwise equal; one launch an apply."""
+    two applies of one input bitwise equal; one launch an apply.  With
+    ``dtype`` float64, phase 16: the same operands cast to float64
+    through ``cheb_step_f64``, within ``F64_TOL``."""
     from xpic_tpu_torch import kernels
     from xpic_tpu_torch.config import Geometry
     from xpic_tpu_torch.ops.stencil_kernel import (
@@ -1088,7 +1453,11 @@ def cheb_kernel(geom, dev, card):
         cheb_matM_inv_plain,
     )
 
-    shift = torch.tensor(0.37, dtype=torch.float32, device=dev)
+    f64 = dtype == torch.float64
+    tag, tol, flops = (("16 f64 kernels", F64_TOL, F64_FLOPS) if f64
+                       else ("3 kernels", CHEB_TOL, F32_FLOPS))
+    shift = torch.tensor(0.37, dtype=torch.float32, device=dev).to(dtype)
+    kname = kernels.entry("cheb_step", shift)
     row = None
     for shape, bounds in (((SIDE,) * 3, geom.bounds),
                           ((40, 24, 12), ("ghosted", "periodic",
@@ -1099,53 +1468,52 @@ def cheb_kernel(geom, dev, card):
                      ny=ny, nz=nz, nt=1, bounds=bounds)
         rng = np.random.default_rng(2)
         rhs = torch.tensor(rng.standard_normal((3,) + g.shape),
-                           dtype=torch.float32, device=dev)
+                           dtype=torch.float32, device=dev).to(dtype)
         cheb = dict(geom=g, degree=12, dt=g.dt)
-        before = kernels.LAUNCHES["cheb_step"]
+        before = kernels.LAUNCHES[kname]
         x_k = cheb_matM_inv(rhs, shift, **cheb)
         again = cheb_matM_inv(rhs, shift, **cheb)
         x_p = cheb_matM_inv_plain(rhs, shift, **cheb)
         torch.cuda.synchronize()
-        applies = kernels.LAUNCHES["cheb_step"] - before
+        applies = kernels.LAUNCHES[kname] - before
         err = float((x_k - x_p).abs().max())
         rel = err / float(x_p.abs().max())
         same = bool(torch.equal(x_k, again))
-        log(f"[3 kernels] cheb degree 12 on {tuple(rhs.shape)} {bounds}: "
-            f"max|d|/max|x| = {rel:.3e} (tol {CHEB_TOL}; nvcc contracts "
+        log(f"[{tag}] {kname} degree 12 on {tuple(rhs.shape)} {bounds}: "
+            f"max|d|/max|x| = {rel:.3e} (tol {tol}; nvcc contracts "
             f"multiply-adds into FMAs, which round once), two applies "
             f"bitwise {same}, launches {applies} for 2 applies")
-        check(np.isfinite(rel) and rel <= CHEB_TOL,
-              f"cheb_step differs from its twin by {rel:.3e} on {shape}")
-        check(same, f"two cheb_step applies differ on {shape}")
-        check(applies == 2, f"cheb_step launched {applies} times for two "
+        check(np.isfinite(rel) and rel <= tol,
+              f"{kname} differs from its twin by {rel:.3e} on {shape}")
+        check(same, f"two {kname} applies differ on {shape}")
+        check(applies == 2, f"{kname} launched {applies} times for two "
               f"applies on {shape}")
         if row is None:
             # One apply reads rhs and writes x once and does CHEB_FLOPS
-            # float32 operations an element.
+            # operations an element.
             row = dict(
                 max_abs_err=err,
                 **kernel_times(lambda: cheb_matM_inv(rhs, shift, **cheb)),
                 plain_ms=time_ms(lambda: cheb_matM_inv_plain(rhs, shift,
                                                              **cheb)),
-                **bound(8 * rhs.numel(), CHEB_FLOPS * rhs.numel()))
-            log(f"[3 kernels] cheb apply {row['ms']:.4f} ms (per call "
+                **bound(2 * rhs.element_size() * rhs.numel(),
+                        CHEB_FLOPS * rhs.numel(), flops))
+            log(f"[{tag}] {kname} apply {row['ms']:.4f} ms (per call "
                 f"{row['call_ms']:.4f}) vs twin {row['plain_ms']:.4f} ms, "
-                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}) | {card}")
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                f"share {row['bound_ms'] / row['ms']:.3f} | {card}")
     return row
 
 
 def slot_kernels(geom, dev, card):
     """Phase 3 for the mass apply (K = 80, the fused path, 96, the
     config-driven path's K at 50 ppc, and 112, the K that the CLI and
-    ecsimcorr runs grow to) and the slot gather (K = 80), on the
-    drifted and migrated 32^3 x 50 ppc state with B at the slots ~0.2."""
+    ecsimcorr runs grow to) and the slot gather (K = 80,
+    :func:`gather_kernel`), on the drifted and migrated 32^3 x 50 ppc
+    state with B at the slots ~0.2."""
     from xpic_tpu_torch.convert import state_from_numpy
     from xpic_tpu_torch.ops.binning import bin_state, drift_state, rebin
     from xpic_tpu_torch.ops.ecsim_blocks import gather_slots
-    from xpic_tpu_torch.ops.ecsim_kernel import (
-        ecsim_gather,
-        ecsim_gather_plain,
-    )
     from xpic_tpu_torch.ops.gather_scatter import (
         B_STAGGER,
         cell_t,
@@ -1198,26 +1566,10 @@ def slot_kernels(geom, dev, card):
         check(np.isfinite(rel) and rel <= MASS_TOL,
               f"mass_apply differs from its twin by {rel:.3e} at K={slots}")
         check(same, f"two mass_apply calls differ at K={slots}")
-        if slots != 80:
-            continue
-        report["mass_apply"] = row
-        Fg = gather_slots(xt, geom)
-        E_k = ecsim_gather(t, Fg)
-        E_p = ecsim_gather_plain(t, Fg)
-        torch.cuda.synchronize()
-        err = float((E_k - E_p).abs().max())
-        rel = err / float(E_p.abs().max())
-        # Read t and Fg, write E_p; ~75 float32 operations per live slot.
-        report["slot_gather"] = row = dict(
-            max_abs_err=err, **kernel_times(lambda: ecsim_gather(t, Fg)),
-            plain_ms=time_ms(lambda: ecsim_gather_plain(t, Fg)),
-            **bound(4 * (2 * t.numel() + Fg.numel()), 75 * n_valid))
-        log(f"[3 kernels] slot_gather K={slots}: max|d|/max|E_p| = "
-            f"{rel:.3e} (tol {GATHER_TOL}) | {row['ms']:.4f} ms vs twin "
-            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}) | {card}")
-        check(np.isfinite(rel) and rel <= GATHER_TOL,
-              f"slot_gather differs from its twin by {rel:.3e}")
+        if slots == 80:
+            report["mass_apply"] = row
+    report["slot_gather"] = gather_kernel(geom, dev, card, (80,),
+                                          torch.float32)[80]
     return report
 
 
@@ -1440,11 +1792,17 @@ def charge_share(header, rows, n_cells, dt):
                for c, h in enumerate(header) if h != "Time")
 
 
-def fill_kernel(geom, dev, card, ks=(96, 112)):
+def fill_kernel(geom, dev, card, ks=(96, 112), dtype=torch.float32):
     """Phase 3 for the ECSIM fill kernel: the drifted and migrated
     32^3 x 50 ppc state at each K of ``ks`` with B at the slots ~0.2
     (``benchmarks.turns.fill_operands``, the operands its ``ecsim_fill``
-    case times); two calls bitwise equal.  Returns the rows by K."""
+    case times); two calls bitwise equal.  With ``dtype`` float64, phase
+    16: the same operands cast to float64 through ``ecsim_fill_f64``,
+    within ``F64_TOL``, and the float32 kernel (3xTF32) and the float32
+    twin each held against that float64 product of the float32 operands
+    (the source of the float32 kernel's gap from its twin).  Returns the
+    rows by K."""
+    from xpic_tpu_torch import kernels
     from xpic_tpu_torch.benchmarks.turns import fill_operands
     from xpic_tpu_torch.ops.ecsim_kernel import (
         FILL_FLOPS_PER_SLOT,
@@ -1452,9 +1810,14 @@ def fill_kernel(geom, dev, card, ks=(96, 112)):
         ecsim_fill_plain,
     )
 
+    f64 = dtype == torch.float64
+    tag, tol, flops = (("16 f64 kernels", F64_TOL, F64_FLOPS) if f64
+                       else ("3 kernels", FILL_TOL, F32_FLOPS))
     rows = {}
     for slots in ks:
-        args, kw = fill_operands(dev, geom.nx, slots, PPC, VTH)
+        args32, kw = fill_operands(dev, geom.nx, slots, PPC, VTH)
+        args = tuple(a.to(dtype) for a in args32[:3]) + args32[3:]
+        kname = kernels.entry("ecsim_fill", args[0])
         L_k, I_k = ecsim_fill(*args, **kw)
         L_2, I_2 = ecsim_fill(*args, **kw)
         L_p, I_p = ecsim_fill_plain(*args, **kw)
@@ -1464,39 +1827,64 @@ def fill_kernel(geom, dev, card, ks=(96, 112)):
                                                         (I_k, I_p))]
         rel = max(errs[0] / float(L_p.abs().max()),
                   errs[1] / float(I_p.abs().max()))
+        gap = ""
+        if f64:
+            # The float32 kernel and the float32 twin on the float32
+            # operands, each against the float64 product of the same
+            # operands (L_k, I_k).
+            dist = {}
+            for who, fill in (("f32 kernel", ecsim_fill),
+                              ("f32 twin", ecsim_fill_plain)):
+                L_32, I_32 = fill(*args32, **kw)
+                dist[who] = max(
+                    float((L_32.double() - L_k).abs().max())
+                    / float(L_k.abs().max()),
+                    float((I_32.double() - I_k).abs().max())
+                    / float(I_k.abs().max()))
+                del L_32, I_32
+            gap = (f"; against this float64 product of the float32 "
+                   f"operands, max|d|/max |L|, |Islot|: the float32 kernel "
+                   f"(3xTF32) {dist['f32 kernel']:.3e}, the float32 twin "
+                   f"{dist['f32 twin']:.3e}")
         del L_k, I_k, L_2, I_2, L_p, I_p
         G = geom.n_cells
         n_valid = int(args[3].sum())
-        # What these inputs need: t, v, B_p (float32) of the live slots and
-        # every slot's valid byte read once, L and Islot written once; the
+        esize = args[0].element_size()
+        # What these inputs need: t, v, B_p of the live slots and every
+        # slot's valid byte read once, L and Islot written once; the
         # operations of the live slots (a dead slot adds nothing).
         row = dict(max_abs_err=max(errs),
                    **kernel_times(lambda: ecsim_fill(*args, **kw)),
                    plain_ms=time_ms(lambda: ecsim_fill_plain(*args, **kw)),
-                   **bound(4 * 9 * n_valid + G * slots
-                           + 4 * G * (1296 + 36),
-                           FILL_FLOPS_PER_SLOT * n_valid))
+                   **bound(esize * 9 * n_valid + G * slots
+                           + esize * G * (1296 + 36),
+                           FILL_FLOPS_PER_SLOT * n_valid, flops))
+        if f64:
+            row["f32_gap_from_f64"] = dist
         rows[slots] = row
-        log(f"[3 kernels] ecsim_fill K={slots} ({n_valid} live "
-            f"slots): max|d|/max |L|, |Islot| = {rel:.3e} (tol {FILL_TOL}), "
+        log(f"[{tag}] {kname} K={slots} ({n_valid} live "
+            f"slots): max|d|/max |L|, |Islot| = {rel:.3e} (tol {tol}), "
             f"two calls bitwise equal: {same} | {row['ms']:.4f} ms "
             f"({row['call_ms']:.4f} a call) vs twin {row['plain_ms']:.4f} "
-            f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}) | "
-            f"{card}")
-        check(np.isfinite(rel) and rel <= FILL_TOL,
-              f"ecsim_fill differs from its twin by {rel:.3e} at K={slots}")
-        check(same, f"two ecsim_fill calls differ at K={slots}")
+            f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+            f"share {row['bound_ms'] / row['ms']:.3f}{gap} | {card}")
+        check(np.isfinite(rel) and rel <= tol,
+              f"{kname} differs from its twin by {rel:.3e} at K={slots}")
+        check(same, f"two {kname} calls differ at K={slots}")
     return rows
 
 
-def segment_kernel(geom, dev, card):
+def segment_kernel(geom, dev, card, dtype=torch.float32):
     """Phase 3 for the segment-field kernel: the drifted 32^3 x 50 ppc
     state at K = 96 (the eccapfim run's K), random E and B, moves of up
     to +-0.9 cell a axis (1 to 4 segments) and rows with tn == t0; the
     fast path's K' = 32 crosser columns read in place, and K' = 96; then
     K' = 32 with moves of 1.1 to 2.5 cells a axis, some segment of which
     is at least 2.05 cells long on an axis (the window offsets of S2 at
-    its two ends then lie two or more apart: the whole-window branch)."""
+    its two ends then lie two or more apart: the whole-window branch).
+    With ``dtype`` float64, phase 16: the same operands cast to float64
+    through ``segment_fields_f64``."""
+    from xpic_tpu_torch import kernels
     from xpic_tpu_torch.convert import state_from_numpy
     from xpic_tpu_torch.ops.binning import bin_state, drift_state
     from xpic_tpu_torch.ops.gather_scatter import cell_t
@@ -1517,35 +1905,39 @@ def segment_kernel(geom, dev, card):
                         dtype=torch.float32, device=dev)
     move[:, :4] = 0.0  # rows of slots that stay put
     tn = t0 + move
-    Eblk = gather_window_blocks(Et, geom)
-    Bblk = gather_window_blocks(Bt, geom)
+    Eblk = gather_window_blocks(Et, geom).to(dtype)
+    Bblk = gather_window_blocks(Bt, geom).to(dtype)
+    tag = "16 f64 kernels" if dtype == torch.float64 else "3 kernels"
+    kname = kernels.entry("segment_fields", Eblk)
+    t0, tn = t0.to(dtype), tn.to(dtype)
     report = {}
     for kp in (32, 96):
         row = segment_row(Eblk, Bblk, t0[:, :kp], tn[:, :kp],
-                          f"[3 kernels] segment_fields K'={kp} of K=96",
-                          card)
+                          f"[{tag}] {kname} K'={kp} of K=96", card)
         if kp == 32:
             report["segment_fields"] = row
     far = rng.uniform(1.1, 2.5, tuple(t0.shape)) * rng.choice([-1.0, 1.0],
                                                                t0.shape)
     a = t0[:, :32]
-    b = (t0 + torch.tensor(far, dtype=torch.float32, device=dev))[:, :32]
+    b = (t0.float() + torch.tensor(far, dtype=torch.float32, device=dev)
+         ).to(dtype)[:, :32]
     longest = float(((b - a)[..., None, :]
                      * split_segments(a, b).diff(dim=-1)[..., None]).abs()
                     .max())
     check(longest >= 2.05, f"no segment of the long moves is 2.05 cells "
           f"long on an axis (longest {longest:.3f})")
-    segment_row(Eblk, Bblk, a, b, "[3 kernels] segment_fields K'=32 of "
-                f"K=96, moves of 1.1 to 2.5 cells (longest segment "
-                f"{longest:.3f} cells on an axis)", card)
+    segment_row(Eblk, Bblk, a, b, f"[{tag}] {kname} K'=32 of K=96, moves "
+                f"of 1.1 to 2.5 cells (longest segment {longest:.3f} cells "
+                f"on an axis)", card)
     return report
 
 
 def segment_row(Eblk, Bblk, a, b, label, card):
     """The segment-field kernel on (Eblk, Bblk, a, b): against its twin
-    within 1e-5 of max |E_p| and of max |B_p|, two calls bitwise equal,
-    timed beside its twin and its bound; logs ``label`` with the numbers
-    and returns the kernels line's row, with the live segments a slot."""
+    within 1e-5 of max |E_p| and of max |B_p| (float64: ``F64_TOL``), two
+    calls bitwise equal, timed beside its twin and its bound; logs
+    ``label`` with the numbers and returns the kernels line's row, with
+    the live segments a slot."""
     from xpic_tpu_torch.ops.segment_kernel import (
         FLOPS_PER_SEGMENT,
         live_segments,
@@ -1564,20 +1956,24 @@ def segment_row(Eblk, Bblk, a, b, label, card):
               errs[1] / max(float(B_p.abs().max()), 1e-30))
     G, kp, _ = a.shape
     segs = live_segments(a, b)
+    f64 = Eblk.dtype == torch.float64
+    tol = F64_TOL if f64 else SEGMENT_TOL
     # Read the two windows and t0, tn once; write E_p and B_p.
     row = dict(max_abs_err=max(errs),
                **kernel_times(lambda: segment_fields(Eblk, Bblk, a, b)),
                plain_ms=time_ms(lambda: segment_fields_plain(Eblk, Bblk, a,
                                                              b)),
-               **bound(4 * (2 * G * 648 + 4 * G * kp * 3),
-                       FLOPS_PER_SEGMENT * segs),
+               **bound(Eblk.element_size() * (2 * G * 648 + 4 * G * kp * 3),
+                       FLOPS_PER_SEGMENT * segs,
+                       F64_FLOPS if f64 else F32_FLOPS),
                segments_per_slot=segs / (G * kp))
     log(f"{label} ({segs} live segments, {row['segments_per_slot']:.3f} a "
-        f"slot): max|d|/max = {rel:.3e} (tol {SEGMENT_TOL}), two calls "
+        f"slot): max|d|/max = {rel:.3e} (tol {tol}), two calls "
         f"bitwise equal: {same} | {row['ms']:.4f} ms ({row['call_ms']:.4f} "
         f"a call) vs twin {row['plain_ms']:.4f} ms, bound "
-        f"{row['bound_ms']:.4f} ms ({row['bound_by']}) | {card}")
-    check(np.isfinite(rel) and rel <= SEGMENT_TOL,
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}), share "
+        f"{row['bound_ms'] / row['ms']:.3f} | {card}")
+    check(np.isfinite(rel) and rel <= tol,
           f"segment_fields differs from its twin by {rel:.3e}: {label}")
     check(same, f"two segment_fields calls differ: {label}")
     return row

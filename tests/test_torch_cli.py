@@ -161,9 +161,14 @@ def test_cli_without_device_needs_cuda(tmp_path, monkeypatch):
 
 
 def test_float64_on_the_card_is_refused(tmp_path):
+    """The card refuses the dtypes its kernels do not take: float16 and
+    bfloat16.  float64 is no longer among them (its kernels have float64
+    instantiations; ``tests/test_torch_f64.py`` holds that a float64 run
+    reaches the scheme on the card)."""
     cfg = Config.from_json(make_doc(tmp_path / "out"))
-    with pytest.raises(ValueError, match="XPIC_X64=0"):
-        build_simulation(cfg, device="cuda", dtype=torch.float64)
+    for dtype in (torch.float16, torch.bfloat16):
+        with pytest.raises(ValueError, match="float32 and float64"):
+            build_simulation(cfg, device="cuda", dtype=dtype)
 
 
 def test_dtype_follows_xpic_x64(tmp_path, monkeypatch):

@@ -420,8 +420,8 @@ def test_fast_particle_is_flagged(tmp_path):
 
 def test_entry_point_device_rules(tmp_path, monkeypatch):
     cfg = Config.from_json(make_doc(tmp_path / "out"))
-    with pytest.raises(ValueError, match="XPIC_X64=0"):
-        build_simulation(cfg, device="cuda", dtype=torch.float64)
+    with pytest.raises(ValueError, match="float32 and float64"):
+        build_simulation(cfg, device="cuda", dtype=torch.float16)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_simulation(cfg)

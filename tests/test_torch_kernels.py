@@ -14,6 +14,10 @@ max |L| and of max |Islot| (its slot sums run on tensor cores in
 equal.  The primitive-rate probes match their twins
 bitwise for copy, roll8 and select16, and within 1e-5 of max |out| for
 fma16, fma64 (FMA contraction) and reduce16 (another summation order).
+The four kernels with a float64 instantiation (Chebyshev, slot gather,
+segment fields, fill) are also held against their twins in float64, on
+the same inputs cast, within 1e-12 of the output's max; the wrappers
+take float64 and refuse float16 and bfloat16.
 
     python -m pytest --noconftest -o addopts="" tests/test_torch_kernels.py -q
 """
@@ -108,16 +112,25 @@ def test_rebin_kernels_match_twins(dev, ppc, slots, shape):
                                     ("ghosted", "periodic", "reflective")],
                          ids=lambda b: b[0])
 def test_cheb_kernel_matches_twin(dev, bounds):
+    """Within 1e-5 relative in float32 (``cheb_step``) and 1e-12 in
+    float64 (``cheb_step_f64``), one launch of each an apply."""
     geom = Geometry(dx=0.5, dy=0.4, dz=0.6, dt=1.5, nx=32, ny=32, nz=32,
                     nt=1, bounds=bounds)
     rng = np.random.default_rng(5)
-    rhs = torch.tensor(rng.standard_normal((3,) + geom.shape),
-                       dtype=torch.float32, device=dev)
-    shift = torch.tensor(0.37, dtype=torch.float32, device=dev)
-    got = cheb_matM_inv(rhs, shift, geom=geom, degree=12, dt=geom.dt)
-    ref = cheb_matM_inv_plain(rhs, shift, geom=geom, degree=12, dt=geom.dt)
-    rel = float((got - ref).abs().max() / ref.abs().max())
-    assert rel <= 1e-5
+    rhs32 = torch.tensor(rng.standard_normal((3,) + geom.shape),
+                         dtype=torch.float32, device=dev)
+    for dtype, name, tol in ((torch.float32, "cheb_step", 1e-5),
+                             (torch.float64, "cheb_step_f64", 1e-12)):
+        rhs = rhs32.to(dtype)
+        shift = torch.tensor(0.37, dtype=dtype, device=dev)
+        before = kernels.LAUNCHES[name]
+        got = cheb_matM_inv(rhs, shift, geom=geom, degree=12, dt=geom.dt)
+        ref = cheb_matM_inv_plain(rhs, shift, geom=geom, degree=12,
+                                  dt=geom.dt)
+        assert kernels.LAUNCHES[name] == before + 1
+        assert got.dtype == dtype
+        rel = float((got - ref).abs().max() / ref.abs().max())
+        assert rel <= tol, name
 
 
 def test_cheb_kernel_one_launch_at_every_size(dev):
@@ -150,10 +163,17 @@ def test_cheb_kernel_one_launch_at_every_size(dev):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
+    """float64 goes to the float64 kernels (Chebyshev, slot gather), and
+    is refused by the kernels without one (mass apply); float16 and
+    bfloat16 are refused by all; so is a mix of dtypes."""
     geom = Geometry(dx=0.5, dy=0.5, dz=0.5, dt=1.5, nx=4, ny=4, nz=4, nt=1)
     rhs64 = torch.zeros((3, 4, 4, 4), dtype=torch.float64, device=dev)
-    with pytest.raises(TypeError):
-        cheb_matM_inv(rhs64, 0.0, geom=geom, degree=2, dt=geom.dt)
+    assert cheb_matM_inv(rhs64, 0.0, geom=geom, degree=2,
+                         dt=geom.dt).dtype == torch.float64
+    for half in (torch.float16, torch.bfloat16):
+        with pytest.raises(TypeError):
+            cheb_matM_inv(rhs64.to(half), 0.0, geom=geom, degree=2,
+                          dt=geom.dt)
     buf = torch.zeros((geom.n_cells, 8, 12), device=dev)
     with pytest.raises(ValueError):
         NR.rebin_extract(buf, geom, 0)
@@ -170,8 +190,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         mass_apply_slots(xg, packed.transpose(0, 2).contiguous()
                          .transpose(0, 2))
     t = torch.zeros((G, 16, 3), device=dev)
-    with pytest.raises(TypeError):
+    with pytest.raises(TypeError):  # float64 t, float32 slot values
         ecsim_gather(t.double(), xg)
+    assert ecsim_gather(t.double(), xg.double()).dtype == torch.float64
+    for half in (torch.float16, torch.bfloat16):
+        with pytest.raises(TypeError):
+            ecsim_gather(t.to(half), xg.to(half))
     with pytest.raises(ValueError):
         ecsim_gather(t, xg[:G // 2])
     with pytest.raises(ValueError):
@@ -225,14 +249,21 @@ def test_mass_apply_kernel_matches_twin(dev, K):
 
 @pytest.mark.parametrize("K", [80, 96])
 def test_slot_gather_kernel_matches_twin(dev, K):
-    _, xg, t = _slot_inputs(16 ** 3, K, dev, seed=K + 1)
-    before = kernels.LAUNCHES["slot_gather"]
-    got = ecsim_gather(t, xg)
-    ref = ecsim_gather_plain(t, xg)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["slot_gather"] == before + 1
-    assert got.shape == ref.shape == (16 ** 3, K, 3)
-    assert float((got - ref).abs().max()) <= 2e-6 * float(ref.abs().max())
+    """Within 2e-6 of max |E_p| in float32, 1e-12 in float64 (the same
+    inputs cast)."""
+    _, xg32, t32 = _slot_inputs(16 ** 3, K, dev, seed=K + 1)
+    for dtype, name, tol in ((torch.float32, "slot_gather", 2e-6),
+                             (torch.float64, "slot_gather_f64", 1e-12)):
+        xg, t = xg32.to(dtype), t32.to(dtype)
+        before = kernels.LAUNCHES[name]
+        got = ecsim_gather(t, xg)
+        ref = ecsim_gather_plain(t, xg)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[name] == before + 1
+        assert got.shape == ref.shape == (16 ** 3, K, 3)
+        assert got.dtype == dtype
+        assert float((got - ref).abs().max()) <= \
+            tol * float(ref.abs().max()), name
 
 
 @pytest.mark.parametrize("kp", [8, 32, 40])
@@ -244,7 +275,8 @@ def test_segment_fields_kernel_matches_twin(dev, kp, shape):
     wholly at rest, every slot of cell 2 in 4 segments, cell 4 a mix
     of 1 to 4 in one row and cell 5 moves of 1.1 to 2.5 cells a axis
     (segments longer than a cell: the kernel's whole-window branch); two
-    calls bitwise equal."""
+    calls bitwise equal; within 1e-5 of the twin's max in float32, 1e-12
+    in float64 (the same inputs cast)."""
     nx, ny, nz = shape
     geom = Geometry(dx=0.5, dy=0.4, dz=0.6, dt=1.5, nx=nx, ny=ny, nz=nz,
                     nt=1)
@@ -280,12 +312,21 @@ def test_segment_fields_kernel_matches_twin(dev, kp, shape):
     move[5, :2] = ((2.5, 0.0, 0.0), (0.0, -2.3, 0.0))
     t0, tn = f32(t0), f32(t0 + move)
     Eblk, Bblk = gather_window_blocks(E, geom), gather_window_blocks(B, geom)
-    before = kernels.LAUNCHES["segment_fields"]
-    got = segment_fields(Eblk, Bblk, t0[:, :kp], tn[:, :kp])
-    again = segment_fields(Eblk, Bblk, t0[:, :kp], tn[:, :kp])
-    ref = segment_fields_plain(Eblk, Bblk, t0[:, :kp], tn[:, :kp])
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["segment_fields"] == before + 2
+    for dtype, name, tol in ((torch.float64, "segment_fields_f64", 1e-12),
+                             (torch.float32, "segment_fields", 1e-5)):
+        win = (Eblk.to(dtype), Bblk.to(dtype))
+        a, b = t0.to(dtype)[:, :kp], tn.to(dtype)[:, :kp]
+        before = kernels.LAUNCHES[name]
+        got = segment_fields(*win, a, b)
+        again = segment_fields(*win, a, b)
+        ref = segment_fields_plain(*win, a, b)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[name] == before + 2
+        for g, a_, r in zip(got, again, ref):
+            assert g.shape == (G, kp, 3) and g.dtype == dtype
+            assert torch.equal(g, a_)
+            assert float((g - r).abs().max()) <= \
+                tol * float(r.abs().max()), name
     segs = (split_segments(t0[:, :kp], tn[:, :kp]).diff(dim=-1) != 0).sum(-1)
     assert bool((segs[1] == 1).all()) and bool((segs[2] == 4).all())
     assert set(segs[4].tolist()) == set((1 + mixed[:kp]).tolist())
@@ -294,10 +335,6 @@ def test_segment_fields_kernel_matches_twin(dev, kp, shape):
     longest = ((tn[5, :kp] - t0[5, :kp])[:, None, :]
                * taus.diff(dim=-1)[..., None]).abs().amax(dim=(1, 2))
     assert float(longest[0]) >= 2.4 and float(longest[1]) >= 2.2
-    for g, a, r in zip(got, again, ref):
-        assert g.shape == (G, kp, 3)
-        assert torch.equal(g, a)
-        assert float((g - r).abs().max()) <= 1e-5 * float(r.abs().max())
 
 
 def _fill_inputs(G, K, dev, seed, empty_cell=None, edges=False):
@@ -330,41 +367,52 @@ def _fill_inputs(G, K, dev, seed, empty_cell=None, edges=False):
 
 @pytest.mark.parametrize("K", [16, 80, 96, 112, 200])
 def test_ecsim_fill_kernel_matches_twin(dev, K):
-    """L and Islot within 1e-5 of their largest magnitudes and two calls
-    bitwise equal, K past the kernel's 32-slot tile included, and from
-    the K = 16 case also K = 1, 7 and 512; cell 3 has no live slot, and
-    cells 5-9 hold the edges of ``_fill_inputs``."""
+    """L and Islot within 1e-5 of their largest magnitudes (float64, the
+    same inputs cast: 1e-12) and two calls bitwise equal, K past the
+    kernel's 32-slot tile included, and from the K = 16 case also K = 1,
+    7 and 512; cell 3 has no live slot, and cells 5-9 hold the edges of
+    ``_fill_inputs``."""
     kw = dict(q=-1.0, m=1.0, mpw=0.02, dt=1.5)
     for k in (K, 1, 7, 512) if K == 16 else (K,):
-        t, v, B_p, valid = _fill_inputs(16 ** 3, k, dev, seed=k,
-                                        empty_cell=3, edges=True)
-        before = kernels.LAUNCHES["ecsim_fill"]
-        L, Islot = ecsim_fill(t, v, B_p, valid, **kw)
-        L_2, Islot_2 = ecsim_fill(t, v, B_p, valid, **kw)
-        L_p, Islot_p = ecsim_fill_plain(t, v, B_p, valid, **kw)
-        torch.cuda.synchronize()
-        assert kernels.LAUNCHES["ecsim_fill"] == before + 2
-        assert L.shape == (16 ** 3, 3, 12, 3, 12)
-        assert Islot.shape == (16 ** 3, 3, 12)
-        assert torch.equal(L, L_2) and torch.equal(Islot, Islot_2), k
-        assert float((L - L_p).abs().max()) <= \
-            1e-5 * float(L_p.abs().max()), k
-        assert float((Islot - Islot_p).abs().max()) <= \
-            1e-5 * float(Islot_p.abs().max()), k
-        assert not bool(L[3].any()) and not bool(Islot[3].any())
-        # each edge cell against its own twin, at its own scale
-        for cell in range(5, 10):
-            assert float((L[cell] - L_p[cell]).abs().max()) <= \
-                1e-5 * float(L_p[cell].abs().max()), (k, cell)
-            assert float((Islot[cell] - Islot_p[cell]).abs().max()) <= \
-                1e-5 * float(Islot_p[cell].abs().max()), (k, cell)
+        inputs = _fill_inputs(16 ** 3, k, dev, seed=k, empty_cell=3,
+                              edges=True)
+        for dtype, name, tol in ((torch.float32, "ecsim_fill", 1e-5),
+                                 (torch.float64, "ecsim_fill_f64", 1e-12)):
+            t, v, B_p = (x.to(dtype) for x in inputs[:3])
+            valid = inputs[3]
+            case = (k, name)
+            before = kernels.LAUNCHES[name]
+            L, Islot = ecsim_fill(t, v, B_p, valid, **kw)
+            L_2, Islot_2 = ecsim_fill(t, v, B_p, valid, **kw)
+            L_p, Islot_p = ecsim_fill_plain(t, v, B_p, valid, **kw)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES[name] == before + 2
+            assert L.shape == (16 ** 3, 3, 12, 3, 12) and L.dtype == dtype
+            assert Islot.shape == (16 ** 3, 3, 12)
+            assert torch.equal(L, L_2) and torch.equal(Islot, Islot_2), case
+            assert float((L - L_p).abs().max()) <= \
+                tol * float(L_p.abs().max()), case
+            assert float((Islot - Islot_p).abs().max()) <= \
+                tol * float(Islot_p.abs().max()), case
+            assert not bool(L[3].any()) and not bool(Islot[3].any())
+            # each edge cell against its own twin, at its own scale
+            for cell in range(5, 10):
+                assert float((L[cell] - L_p[cell]).abs().max()) <= \
+                    tol * float(L_p[cell].abs().max()), (case, cell)
+                assert float((Islot[cell] - Islot_p[cell]).abs().max()) \
+                    <= tol * float(Islot_p[cell].abs().max()), (case, cell)
 
 
 def test_ecsim_fill_wrapper_rejects_what_the_kernel_does_not_take(dev):
     t, v, B_p, valid = _fill_inputs(64, 16, dev, seed=1)
     kw = dict(q=-1.0, m=1.0, mpw=0.02, dt=1.5)
-    with pytest.raises(TypeError):
-        ecsim_fill(t.double(), v.double(), B_p.double(), valid, **kw)
+    L, Islot = ecsim_fill(t.double(), v.double(), B_p.double(), valid, **kw)
+    assert L.dtype == Islot.dtype == torch.float64
+    with pytest.raises(TypeError):  # float64 t, float32 v and B_p
+        ecsim_fill(t.double(), v, B_p, valid, **kw)
+    for half in (torch.float16, torch.bfloat16):
+        with pytest.raises(TypeError):
+            ecsim_fill(t.to(half), v.to(half), B_p.to(half), valid, **kw)
     with pytest.raises(ValueError):  # valid not bool
         ecsim_fill(t, v, B_p, valid.float(), **kw)
     with pytest.raises(ValueError):  # B_p of another K
@@ -384,6 +432,12 @@ def test_segment_fields_wrapper_rejects_what_the_kernel_does_not_take(dev):
         segment_fields(blk.double(), blk, t, t)
     with pytest.raises(TypeError):
         segment_fields(blk, blk, t.double(), t.double())
+    got = segment_fields(blk.double(), blk.double(), t.double(), t.double())
+    assert all(x.dtype == torch.float64 for x in got)
+    for half in (torch.float16, torch.bfloat16):
+        with pytest.raises(TypeError):
+            segment_fields(blk.to(half), blk.to(half), t.to(half),
+                           t.to(half))
     with pytest.raises(ValueError):
         segment_fields(blk[: G // 2], blk, t, t)
     with pytest.raises(ValueError):  # slots not contiguous

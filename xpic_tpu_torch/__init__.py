@@ -5,8 +5,9 @@ Module names mirror the JAX package ``xpic_tpu`` so each function's
 counterpart is found by path.  The port takes device and dtype from its
 input tensors: there is no global dtype switch.  A CUDA float32 tensor
 reaches the hand-written Hopper kernels (``xpic_tpu_torch/csrc``, built by
-``xpic_tpu_torch.kernels``); a CPU tensor takes each kernel's plain
-PyTorch twin; anything else raises.
+``xpic_tpu_torch.kernels``), and so does a CUDA float64 tensor where the
+float64 path calls the kernel (their float64 instantiations); a CPU tensor
+takes each kernel's plain PyTorch twin; anything else raises.
 
 Float32 contractions on the card stay in full IEEE float32: TF32 keeps
 about three decimal digits, far coarser than the f32 solve tolerance of

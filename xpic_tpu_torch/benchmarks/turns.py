@@ -11,14 +11,14 @@ sources; the other tree's library goes under this tree's
 ``build/turns_other/``, so nothing is written into OTHER_ROOT.  NAME is a
 key of ``CASES`` (default ``cheb_step``): the kernel's wrapper at the
 main paths' shapes, on the same inputs in both trees, made from a numpy
-seed; ``mass_apply`` at K = 80 and 112, ``segment_fields`` at K' = 32 of
-K = 96 and on the operands of a real call: the first fast-path call of
-one eccapfim step at side^3 x 50 ppc (:func:`path_operands`, this
-tree's scheme, run before the timing); ``ecsim_fill`` on the drifted and
-migrated side^3 x 50 ppc state at K = 96 and 112 (:func:`fill_operands`,
-as ``chip_smoke.py``'s phase 3 makes it) and on random inputs with 70%
-of slots live.  Each turn times the other tree,
-this tree, this tree, the other tree: ``ms`` back to back
+seed; ``mass_apply`` and ``slot_gather`` at K = 80 and 112,
+``segment_fields`` at K' = 32 of K = 96 and on the operands of a real
+call: the first fast-path call of one eccapfim step at side^3 x 50 ppc
+(:func:`path_operands`, this tree's scheme, run before the timing);
+``ecsim_fill`` on the drifted and migrated side^3 x 50 ppc state at
+K = 96 and 112 (:func:`fill_operands`, as ``chip_smoke.py``'s phase 3
+makes it) and on random inputs with 70% of slots live.  Each turn times
+the other tree, this tree, this tree, the other tree: ``ms`` back to back
 (``benchmarks.device_ms``, no host launch gap) and ``call_ms`` (one call
 between two CUDA events, the host's gap in).  Prints one JSON line: the
 turns, each case's medians, each tree's launches a call, the largest
@@ -112,6 +112,23 @@ def _mass_case(mods, device, side, operands=None):
         xg = torch.tensor(rng.standard_normal((G, 3, 12)),
                           dtype=torch.float32, device=device)
         calls[f"K={K}"] = lambda P=P, xg=xg: apply(xg, P)
+    return calls
+
+
+def _gather_case(mods, device, side, operands=None):
+    """K5: E at the slots from the slot values on side^3 cells at K = 80
+    (the fused path) and 112 (the CLI and ecsimcorr runs): t uniform in
+    the cell, Fg ~ N(0, 1), numpy seed K."""
+    gather = mods["ops.ecsim_kernel"].ecsim_gather
+    G = side ** 3
+    calls = {}
+    for K in (80, 112):
+        rng = np.random.default_rng(K)
+        t = torch.tensor(rng.random((G, K, 3)), dtype=torch.float32,
+                         device=device)
+        Fg = torch.tensor(rng.standard_normal((G, 3, 12)),
+                          dtype=torch.float32, device=device)
+        calls[f"K={K}"] = lambda t=t, Fg=Fg: gather(t, Fg)
     return calls
 
 
@@ -288,6 +305,7 @@ def path_operands(device, side, ppc=50) -> dict:
 # wrapper, or {case name: call})
 CASES = {"cheb_step": (("ops.stencil_kernel", "config"), _cheb_case),
          "mass_apply": (("ops.mass_kernel",), _mass_case),
+         "slot_gather": (("ops.ecsim_kernel",), _gather_case),
          "segment_fields": (("ops.segment_kernel",), _segment_case),
          "ecsim_fill": (("ops.ecsim_kernel",), _fill_case)}
 

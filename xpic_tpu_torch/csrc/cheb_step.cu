@@ -1,34 +1,39 @@
 // cheb_step: the degree-`degree` Chebyshev semi-iteration
 //   x ~ ((2 + shift) I + beta curl- curl+)^{-1} rhs
-// on a Yee field [3, nz, ny, nx] float32, in one launch an apply.
+// on a Yee field [3, nz, ny, nx], in one launch an apply.  One source,
+// two element types: xpic_cheb_step takes float32, xpic_cheb_step_f64
+// float64 (the float64 path of the schemes; its scalars are doubles
+// too), the same kernel template instantiated for each.
 //
 // Replaces: xpic_tpu/ops/pallas_stencil.py:_cheb_kernel (entry
 // cheb_matM_inv_pallas), which runs the whole recurrence in one dispatch
 // with the field resident in TPU VMEM.
 //
 // Bound on the H100: operations, with rhs read and x written once.  Per
-// element, a middle sweep does 33 float32 operations (four curl+ taps of
+// element, a middle sweep does 33 operations (four curl+ taps of
 // 5, 5 to combine them, 1 for x, 4 for r, 3 for d); the first sweep 13
 // more (its 13 distinct taps of rhs, each scaled by 1/theta); the last
 // only x += d.  So an apply of degree k >= 2 does 46 + 33 (k - 2) + 1
-// operations an element, 377 at degree 12: 0.00055 ms at 32^3.  What an
+// operations an element, 377 at degree 12: 0.00055 ms at 32^3 in float32
+// (67 TFLOP/s), 0.0011 ms in float64 (34 TFLOP/s).  What an
 // apply really waits on is its `degree` dependent sweeps: each needs all
 // of the previous sweep's d.  The working set (x, r, two d buffers, rhs:
-// ~2 MB at 32^3) stays in the 50 MB L2.
+// ~2 MB at 32^3 in float32, 4 MB in float64) stays in the 50 MB L2.
 //
 // Design: one cooperative launch (cudaLaunchCooperativeKernel).  The grid
 // is as many blocks as the card holds at once (the occupancy query times
-// the SM count, asked at every launch), capped at the work.  Each iteration is a grid-stride
-// sweep over the 3 nz ny nx elements, so every grid size, however large,
-// goes through the same kernel, and a grid-wide barrier
-// (cooperative_groups::this_grid().sync()) separates the iterations,
-// with a ping-pong d buffer.  The field need not fit anywhere on chip.
-// A launch the runtime refuses returns its error; there is no second
-// path.  512 threads a block (ptxas: 40 registers, no spill).  Per
-// element, (curl- curl+ d)[c, i] comes straight from d through the
-// 2-hop stencil (periodic wrap or zero fill per axis, as
-// ops/stencil.shift), its 13 tap positions worked out once from the
-// cell's wrapped neighbour offsets, then
+// the SM count, asked at every launch for the instantiation launched:
+// the float64 one holds more registers), capped at the work.  Each
+// iteration is a grid-stride sweep over the 3 nz ny nx elements, so
+// every grid size, however large, goes through the same kernel, and a
+// grid-wide barrier (cooperative_groups::this_grid().sync()) separates
+// the iterations, with a ping-pong d buffer.  The field need not fit
+// anywhere on chip.  A launch the runtime refuses returns its error;
+// there is no second path.  512 threads a block (ptxas, float32: 40
+// registers, no spill).  Per element, (curl- curl+ d)[c, i] comes
+// straight from d through the 2-hop stencil (periodic wrap or zero fill
+// per axis, as ops/stencil.shift), its 13 tap positions worked out once
+// from the cell's wrapped neighbour offsets, then
 //   x += d;  r -= a d + beta cc;  d_out = cd d + cr r.
 //
 // Coherence: d, x and r are written by this launch and read after a grid
@@ -42,7 +47,7 @@
 // needs no host synchronisation.  The arithmetic follows the TPU
 // kernel's expression order; nvcc may contract a multiply and an add
 // into an FMA, which rounds once instead of twice (agreement with the
-// plain twin is checked to 1e-5 relative).
+// plain twin is checked to 1e-5 relative in float32, 1e-12 in float64).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -51,10 +56,11 @@ namespace {
 
 constexpr int kThreads = 512;
 
+template <typename T>
 struct Grid {
   int nx, ny, nz;
   int px, py, pz;  // 1 = periodic axis
-  float ix, iy, iz;  // inverse cell steps
+  T ix, iy, iz;  // inverse cell steps
 };
 
 // Bring a coordinate one step outside [0, n) back in on a periodic
@@ -98,18 +104,19 @@ struct Nbhd {
   }
 };
 
+template <typename T>
 struct Field {
-  const float* d;    // current direction (unused when first); written by
-                     // the previous sweep, so never read through __ldg
-  const float* rhs;  // first iteration: d = rhs / theta
-  float inv_theta;
+  const T* d;    // current direction (unused when first); written by
+                 // the previous sweep, so never read through __ldg
+  const T* rhs;  // first iteration: d = rhs / theta
+  T inv_theta;
   bool first;
-  int n;             // elements of a component
+  int n;         // elements of a component
 
   // Component c at the neighbour (ix, iy, iz) of N; zero outside.
-  __device__ __forceinline__ float at(const Nbhd& N, int c, int ix, int iy,
-                                      int iz) const {
-    if (!N.inside(ix, iy, iz)) return 0.0f;
+  __device__ __forceinline__ T at(const Nbhd& N, int c, int ix, int iy,
+                                  int iz) const {
+    if (!N.inside(ix, iy, iz)) return T(0);
     const int idx = c * n + N.at(ix, iy, iz);
     return first ? rhs[idx] * inv_theta : d[idx];
   }
@@ -117,78 +124,80 @@ struct Field {
 
 // Component c of curl+ d at the neighbour (ix, iy, iz) of N (each index
 // below 2: a tap adds one step); zero outside the grid.
-__device__ __forceinline__ float curlp_at(const Field& F, const Nbhd& N,
-                                          const Grid& g, int c, int ix,
-                                          int iy, int iz) {
-  if (!N.inside(ix, iy, iz)) return 0.0f;
+template <typename T>
+__device__ __forceinline__ T curlp_at(const Field<T>& F, const Nbhd& N,
+                                      const Grid<T>& g, int c, int ix,
+                                      int iy, int iz) {
+  if (!N.inside(ix, iy, iz)) return T(0);
   if (c == 0) {
-    const float fz = F.at(N, 2, ix, iy, iz), fy = F.at(N, 1, ix, iy, iz);
+    const T fz = F.at(N, 2, ix, iy, iz), fy = F.at(N, 1, ix, iy, iz);
     return (F.at(N, 2, ix, iy + 1, iz) - fz) * g.iy -
            (F.at(N, 1, ix, iy, iz + 1) - fy) * g.iz;
   }
   if (c == 1) {
-    const float fx = F.at(N, 0, ix, iy, iz), fz = F.at(N, 2, ix, iy, iz);
+    const T fx = F.at(N, 0, ix, iy, iz), fz = F.at(N, 2, ix, iy, iz);
     return (F.at(N, 0, ix, iy, iz + 1) - fx) * g.iz -
            (F.at(N, 2, ix + 1, iy, iz) - fz) * g.ix;
   }
-  const float fy = F.at(N, 1, ix, iy, iz), fx = F.at(N, 0, ix, iy, iz);
+  const T fy = F.at(N, 1, ix, iy, iz), fx = F.at(N, 0, ix, iy, iz);
   return (F.at(N, 1, ix + 1, iy, iz) - fy) * g.ix -
          (F.at(N, 0, ix, iy + 1, iz) - fx) * g.iy;
 }
 
 // Component c of curl- curl+ d at N's cell.
-__device__ __forceinline__ float curlcurl_at(const Field& F, const Nbhd& N,
-                                             const Grid& g, int c) {
+template <typename T>
+__device__ __forceinline__ T curlcurl_at(const Field<T>& F, const Nbhd& N,
+                                         const Grid<T>& g, int c) {
   if (c == 0) {
-    const float gz = curlp_at(F, N, g, 2, 1, 1, 1);
-    const float gy = curlp_at(F, N, g, 1, 1, 1, 1);
+    const T gz = curlp_at(F, N, g, 2, 1, 1, 1);
+    const T gy = curlp_at(F, N, g, 1, 1, 1, 1);
     return (gz - curlp_at(F, N, g, 2, 1, 0, 1)) * g.iy -
            (gy - curlp_at(F, N, g, 1, 1, 1, 0)) * g.iz;
   }
   if (c == 1) {
-    const float gx = curlp_at(F, N, g, 0, 1, 1, 1);
-    const float gz = curlp_at(F, N, g, 2, 1, 1, 1);
+    const T gx = curlp_at(F, N, g, 0, 1, 1, 1);
+    const T gz = curlp_at(F, N, g, 2, 1, 1, 1);
     return (gx - curlp_at(F, N, g, 0, 1, 1, 0)) * g.iz -
            (gz - curlp_at(F, N, g, 2, 0, 1, 1)) * g.ix;
   }
-  const float gy = curlp_at(F, N, g, 1, 1, 1, 1);
-  const float gx = curlp_at(F, N, g, 0, 1, 1, 1);
+  const T gy = curlp_at(F, N, g, 1, 1, 1, 1);
+  const T gx = curlp_at(F, N, g, 0, 1, 1, 1);
   return (gy - curlp_at(F, N, g, 1, 0, 1, 1)) * g.ix -
          (gx - curlp_at(F, N, g, 0, 1, 0, 1)) * g.iy;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    cheb_apply_kernel(const float* __restrict__ rhs,
-                      const float* __restrict__ shift, float* x, float* r,
-                      float* d0, float* d1, Grid g, float beta,
-                      float beta_lam, int degree) {
+    cheb_apply_kernel(const T* __restrict__ rhs, const T* __restrict__ shift,
+                      T* x, T* r, T* d0, T* d1, Grid<T> g, T beta,
+                      T beta_lam, int degree) {
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   const int n = g.nx * g.ny * g.nz;
   const int total = 3 * n;
   const int stride = gridDim.x * blockDim.x;
 
   // Scalar recurrence from the device shift, advanced once an iteration.
-  const float a = 2.0f + shift[0];
-  const float b = a + beta_lam;
-  const float theta = 0.5f * (b + a);
-  const float delta = 0.5f * (b - a);
-  const float sigma1 = theta / delta;
-  const float inv_theta = 1.0f / theta;
-  float rho = 1.0f / sigma1;
+  const T a = T(2) + shift[0];
+  const T b = a + beta_lam;
+  const T theta = T(0.5) * (b + a);
+  const T delta = T(0.5) * (b - a);
+  const T sigma1 = theta / delta;
+  const T inv_theta = T(1) / theta;
+  T rho = T(1) / sigma1;
 
   for (int k = 0; k < degree; ++k) {
-    const float rho_new = 1.0f / (2.0f * sigma1 - rho);
-    const float cd = rho_new * rho;
-    const float cr = 2.0f * rho_new / delta;
+    const T rho_new = T(1) / (T(2) * sigma1 - rho);
+    const T cd = rho_new * rho;
+    const T cr = T(2) * rho_new / delta;
     const bool first = (k == 0);
     const bool last = (k == degree - 1);
-    const float* d_in = (k & 1) ? d1 : d0;
-    float* d_out = (k & 1) ? d0 : d1;
-    const Field F{d_in, rhs, inv_theta, first, n};
+    const T* d_in = (k & 1) ? d1 : d0;
+    T* d_out = (k & 1) ? d0 : d1;
+    const Field<T> F{d_in, rhs, inv_theta, first, n};
     for (int tid = blockIdx.x * blockDim.x + threadIdx.x; tid < total;
          tid += stride) {
-      const float dv = first ? rhs[tid] * inv_theta : d_in[tid];
-      x[tid] = (first ? 0.0f : x[tid]) + dv;
+      const T dv = first ? rhs[tid] * inv_theta : d_in[tid];
+      x[tid] = (first ? T(0) : x[tid]) + dv;
       if (last) continue;  // the last sweep's r and d are never read
       const int c = tid / n;
       const int cell = tid - c * n;
@@ -197,8 +206,8 @@ __global__ void __launch_bounds__(kThreads)
       N.set(0, cell - row * g.nx, g.nx, g.px, 1);
       N.set(1, row % g.ny, g.ny, g.py, g.nx);
       N.set(2, row / g.ny, g.nz, g.pz, g.nx * g.ny);
-      const float cc = curlcurl_at(F, N, g, c);
-      const float rv = (first ? rhs[tid] : r[tid]) - (a * dv + beta * cc);
+      const T cc = curlcurl_at(F, N, g, c);
+      const T rv = (first ? rhs[tid] : r[tid]) - (a * dv + beta * cc);
       r[tid] = rv;
       d_out[tid] = cd * dv + cr * rv;
     }
@@ -207,33 +216,51 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-}  // namespace
-
 // r, d0 and d1 are scratch fields of rhs's shape; x receives the apply.
-XPIC_API int xpic_cheb_step(const float* rhs, const float* shift, float* x,
-                            float* r, float* d0, float* d1, int nx, int ny,
-                            int nz, int px, int py, int pz, float ix,
-                            float iy, float iz, float beta, float beta_lam,
-                            int degree, void* stream) {
+template <typename T>
+int launch(const T* rhs, const T* shift, T* x, T* r, T* d0, T* d1, int nx,
+           int ny, int nz, int px, int py, int pz, T ix, T iy, T iz, T beta,
+           T beta_lam, int degree, void* stream) {
   if (degree < 1) return static_cast<int>(cudaErrorInvalidValue);
   // Blocks the card holds at once: per SM times SMs.
   int dev = 0, per_sm = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, cheb_apply_kernel, kThreads, 0);
+        &per_sm, cheb_apply_kernel<T>, kThreads, 0);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int resident = per_sm * sms;
-  Grid g{nx, ny, nz, px, py, pz, ix, iy, iz};
+  Grid<T> g{nx, ny, nz, px, py, pz, ix, iy, iz};
   const int work = (3 * nx * ny * nz + kThreads - 1) / kThreads;
   const int blocks = work < resident ? work : resident;
   void* args[] = {&rhs, &shift, &x, &r, &d0, &d1, &g, &beta, &beta_lam,
                   &degree};
   err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(cheb_apply_kernel), dim3(blocks),
+      reinterpret_cast<const void*>(cheb_apply_kernel<T>), dim3(blocks),
       dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+XPIC_API int xpic_cheb_step(const float* rhs, const float* shift, float* x,
+                            float* r, float* d0, float* d1, int nx, int ny,
+                            int nz, int px, int py, int pz, float ix,
+                            float iy, float iz, float beta, float beta_lam,
+                            int degree, void* stream) {
+  return launch(rhs, shift, x, r, d0, d1, nx, ny, nz, px, py, pz, ix, iy, iz,
+                beta, beta_lam, degree, stream);
+}
+
+XPIC_API int xpic_cheb_step_f64(const double* rhs, const double* shift,
+                                double* x, double* r, double* d0, double* d1,
+                                int nx, int ny, int nz, int px, int py,
+                                int pz, double ix, double iy, double iz,
+                                double beta, double beta_lam, int degree,
+                                void* stream) {
+  return launch(rhs, shift, x, r, d0, d1, nx, ny, nz, px, py, pz, ix, iy, iz,
+                beta, beta_lam, degree, stream);
 }

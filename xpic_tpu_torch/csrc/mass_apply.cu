@@ -98,9 +98,9 @@ __global__ void mass_apply_kernel(const float* __restrict__ xg,
   for (int k = l; k < k_end; k += kLanes) {
     float after[kReadCh];
     if (k + 2 * kLanes < k_end) load_slot(Pg, K, k + 2 * kLanes, after);
-    const AxisHats hx = axis_hats(ch[0]);
-    const AxisHats hy = axis_hats(ch[1]);
-    const AxisHats hz = axis_hats(ch[2]);
+    const AxisHats<float> hx = axis_hats(ch[0]);
+    const AxisHats<float> hy = axis_hats(ch[1]);
+    const AxisHats<float> hz = axis_hats(ch[2]);
     const float bx = ch[3], by = ch[4], bz = ch[5], coef = ch[6];
 
     float u[3];

@@ -12,6 +12,13 @@ Every C entry point enqueues its kernel on the caller's CUDA stream and
 returns ``cudaGetLastError()``; :func:`call` raises when that is not 0
 and adds one to ``LAUNCHES[name]``, the count a run reads to show that
 its path went through the kernel.
+
+The kernels take float32.  The four that the float64 path of the schemes
+runs (``F64_KERNELS``) have a second entry point ``xpic_<name>_f64``,
+the same kernel template instantiated for float64, with double scalars;
+:func:`entry` picks the entry point from a tensor's dtype, and the
+launches of each are counted under its own name (``cheb_step_f64``, ...),
+so that a run shows which dtype its path took.
 """
 
 from __future__ import annotations
@@ -32,8 +39,8 @@ TOOLKIT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                  ctypes.c_float)
+_P, _I, _L, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_float, ctypes.c_double)
 # C entry point -> argument types (pointers and the stream as void*).
 SIGNATURES = {
     # rhs, shift, x, r, d0, d1, nx, ny, nz, periodic x/y/z,
@@ -55,7 +62,16 @@ SIGNATURES = {
     "ecsim_fill": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P),
     # x, out, G, probe (0 copy .. 5 reduce16), stream
     "prims": (_P, _P, _I, _I, _P),
+    # The float64 instantiations: the rows above with double scalars.
+    "cheb_step_f64": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _D, _D, _D, _D, _D, _I, _P),
+    "slot_gather_f64": (_P, _P, _P, _I, _I, _P),
+    "segment_fields_f64": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _P),
+    "ecsim_fill_f64": (_P, _P, _P, _P, _P, _P, _I, _I, _D, _D, _D, _P),
 }
+# The kernels with a float64 entry point, and its suffix.
+F64_KERNELS = ("cheb_step", "slot_gather", "segment_fields", "ecsim_fill")
+F64 = "_f64"
 
 LAUNCHES = {name: 0 for name in SIGNATURES}
 BUILD_LOG = ""
@@ -143,13 +159,30 @@ def load():
     return lib
 
 
-def check_operand(name: str, T, shape) -> None:
-    """Raise unless ``T`` is what a kernel takes: float32 (TypeError),
-    contiguous and of ``shape`` (ValueError)."""
+def entry(name: str, T) -> str:
+    """The entry point of kernel ``name`` for the dtype of ``T``: ``name``
+    for float32, ``name + F64`` for float64 where the kernel has one
+    (``F64_KERNELS``); TypeError for any other dtype, float16 and
+    bfloat16 included."""
     import torch
 
-    if T.dtype != torch.float32:
-        raise TypeError(f"{name}: float32 required on CUDA, got {T.dtype}")
+    if T.dtype == torch.float32:
+        return name
+    if T.dtype == torch.float64 and name in F64_KERNELS:
+        return name + F64
+    takes = "float32 or float64" if name in F64_KERNELS else "float32"
+    raise TypeError(f"{name}: {takes} required on CUDA, got {T.dtype}")
+
+
+def check_operand(name: str, T, shape, dtype=None) -> None:
+    """Raise unless ``T`` is what a kernel takes: of ``dtype`` (default
+    float32; TypeError), contiguous and of ``shape`` (ValueError)."""
+    import torch
+
+    dtype = torch.float32 if dtype is None else dtype
+    if T.dtype != dtype:
+        want = str(dtype).removeprefix("torch.")
+        raise TypeError(f"{name}: {want} required on CUDA, got {T.dtype}")
     if tuple(T.shape) != tuple(shape) or not T.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous {tuple(shape)} "
                          f"tensor, got {tuple(T.shape)}")

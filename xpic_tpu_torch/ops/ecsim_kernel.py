@@ -11,6 +11,9 @@ Fg[g, c, s], with t [G, K, 3] the cell-relative positions and Fg
 ``ecsim_fill`` computes, per cell, the mass blocks L [G, 3, 12, 3, 12]
 and the slot sums of the implicit current Islot [G, 3, 12] =
 sum_k I_p[g, k, c] W[g, k, c, s] from (t, v, B_p, valid).
+
+Both kernels take float32 and float64 (``slot_gather_f64``,
+``ecsim_fill_f64``: the float64 path of the ECSIM family).
 """
 
 from __future__ import annotations
@@ -39,8 +42,8 @@ def ecsim_gather_plain(t, Fg):
 
 
 def ecsim_gather(t, Fg):
-    """E_p [G, K, 3]: the ``slot_gather`` kernel for CUDA float32
-    tensors, the plain twin for CPU tensors; raises otherwise."""
+    """E_p [G, K, 3]: the ``slot_gather`` kernel for CUDA float32 or
+    float64 tensors, the plain twin for CPU tensors; raises otherwise."""
     if t.device.type == "cpu":
         return ecsim_gather_plain(t, Fg)
     if t.device.type != "cuda":
@@ -49,12 +52,13 @@ def ecsim_gather(t, Fg):
         raise ValueError(f"slot_gather: t must be [G, K, 3], got "
                          f"{tuple(t.shape)}")
     G, K, _ = t.shape
-    kernels.check_operand("slot_gather t", t, (G, K, 3))
-    kernels.check_operand("slot_gather Fg", Fg, (G, 3, 12))
+    name = kernels.entry("slot_gather", t)
+    kernels.check_operand("slot_gather t", t, (G, K, 3), t.dtype)
+    kernels.check_operand("slot_gather Fg", Fg, (G, 3, 12), t.dtype)
     if Fg.device != t.device:
         raise ValueError("slot_gather: tensors on different devices")
-    out = torch.empty((G, K, 3), dtype=torch.float32, device=t.device)
-    kernels.call("slot_gather", t.data_ptr(), Fg.data_ptr(), out.data_ptr(),
+    out = torch.empty((G, K, 3), dtype=t.dtype, device=t.device)
+    kernels.call(name, t.data_ptr(), Fg.data_ptr(), out.data_ptr(),
                  G, K, device=t.device)
     return out
 
@@ -69,8 +73,8 @@ def ecsim_fill_plain(t, v, B_p, valid, *, q, m, mpw, dt):
 
 
 def ecsim_fill(t, v, B_p, valid, *, q, m, mpw, dt):
-    """(L, Islot): the ``ecsim_fill`` kernel for CUDA float32 tensors, the
-    plain twin for CPU tensors; raises otherwise."""
+    """(L, Islot): the ``ecsim_fill`` kernel for CUDA float32 or float64
+    tensors, the plain twin for CPU tensors; raises otherwise."""
     if t.device.type == "cpu":
         return ecsim_fill_plain(t, v, B_p, valid, q=q, m=m, mpw=mpw, dt=dt)
     if t.device.type != "cuda":
@@ -79,8 +83,9 @@ def ecsim_fill(t, v, B_p, valid, *, q, m, mpw, dt):
         raise ValueError(f"ecsim_fill: t must be [G, K, 3] with 1 <= K <= "
                          f"{FILL_MAX_K}, got {tuple(t.shape)}")
     G, K, _ = t.shape
+    kname = kernels.entry("ecsim_fill", t)
     for name, T in (("t", t), ("v", v), ("B_p", B_p)):
-        kernels.check_operand(f"ecsim_fill {name}", T, (G, K, 3))
+        kernels.check_operand(f"ecsim_fill {name}", T, (G, K, 3), t.dtype)
     if valid.dtype != torch.bool or tuple(valid.shape) != (G, K) \
             or not valid.is_contiguous():
         raise ValueError(f"ecsim_fill: valid must be a contiguous bool "
@@ -88,9 +93,9 @@ def ecsim_fill(t, v, B_p, valid, *, q, m, mpw, dt):
                          f"{tuple(valid.shape)}")
     if any(T.device != t.device for T in (v, B_p, valid)):
         raise ValueError("ecsim_fill: tensors on different devices")
-    L = torch.empty((G, 3, 12, 3, 12), dtype=torch.float32, device=t.device)
-    Islot = torch.empty((G, 3, 12), dtype=torch.float32, device=t.device)
-    kernels.call("ecsim_fill", t.data_ptr(), v.data_ptr(), B_p.data_ptr(),
+    L = torch.empty((G, 3, 12, 3, 12), dtype=t.dtype, device=t.device)
+    Islot = torch.empty((G, 3, 12), dtype=t.dtype, device=t.device)
+    kernels.call(kname, t.data_ptr(), v.data_ptr(), B_p.data_ptr(),
                  valid.data_ptr(), L.data_ptr(), Islot.data_ptr(), G, K,
                  0.5 * dt * q / m, 0.5 * dt * dt * mpw * q * q / m, q * mpw,
                  device=t.device)

@@ -22,7 +22,7 @@ from .implicit_esirkepov import (
     split_segments,
 )
 
-# float32 operations of one segment of non-zero length in the kernel,
+# Floating-point operations of one segment of non-zero length in the kernel,
 # which sums only over the window offsets of the nonzero weights:
 # positions 18; the first offset of 15 supports, 7 each; per axis 2 S1
 # weights of 4 and 14 S2 weights of 10; E 3 x (8 FMAs for the
@@ -59,7 +59,8 @@ def live_segments(t0, tn) -> int:
 
 def segment_fields(Eblk, Bblk, t0, tn):
     """(E_p, B_p) [G, K', 3]: the ``segment_fields`` kernel for CUDA
-    float32 tensors, the plain twin for CPU tensors; raises otherwise.
+    float32 or float64 tensors (``segment_fields_f64``), the plain twin
+    for CPU tensors; raises otherwise.
     ``t0`` and ``tn`` may be column slices ``[:, :kc]`` of [G, K, 3]
     tensors: the kernel reads them in place through their row stride."""
     if t0.device.type == "cpu":
@@ -71,12 +72,13 @@ def segment_fields(Eblk, Bblk, t0, tn):
                          f"{tuple(t0.shape)}")
     G, K, _ = t0.shape
     win = (G, 3, WIDTH, WIDTH, WIDTH)
-    kernels.check_operand("segment_fields Eblk", Eblk, win)
-    kernels.check_operand("segment_fields Bblk", Bblk, win)
+    kname = kernels.entry("segment_fields", Eblk)
+    kernels.check_operand("segment_fields Eblk", Eblk, win, Eblk.dtype)
+    kernels.check_operand("segment_fields Bblk", Bblk, win, Eblk.dtype)
     for name, T in (("t0", t0), ("tn", tn)):
-        if T.dtype != torch.float32:
-            raise TypeError(f"segment_fields {name}: float32 required on "
-                            f"CUDA, got {T.dtype}")
+        if T.dtype != Eblk.dtype:
+            raise TypeError(f"segment_fields {name}: {Eblk.dtype} required "
+                            f"(the windows' dtype), got {T.dtype}")
         if (tuple(T.shape) != (G, K, 3) or T.stride()[1:] != (3, 1)
                 or T.stride(0) != t0.stride(0)):
             raise ValueError(
@@ -87,10 +89,11 @@ def segment_fields(Eblk, Bblk, t0, tn):
         raise ValueError("segment_fields: tensors on different devices")
     if Eblk.data_ptr() % 16 or Bblk.data_ptr() % 16:
         raise ValueError("segment_fields: the windows must start on a "
-                         "16-byte boundary (the kernel reads them as float4)")
-    E_p = torch.empty((G, K, 3), dtype=torch.float32, device=t0.device)
+                         "16-byte boundary (the kernel reads them 16 bytes "
+                         "at a time)")
+    E_p = torch.empty((G, K, 3), dtype=t0.dtype, device=t0.device)
     B_p = torch.empty_like(E_p)
-    kernels.call("segment_fields", Eblk.data_ptr(), Bblk.data_ptr(),
+    kernels.call(kname, Eblk.data_ptr(), Bblk.data_ptr(),
                  t0.data_ptr(), tn.data_ptr(), E_p.data_ptr(),
                  B_p.data_ptr(), G, K, t0.stride(0),
                  device=t0.device)

@@ -12,7 +12,8 @@ The TPU kernel runs the whole recurrence in one dispatch with the field
 resident in on-chip memory.  The CUDA kernel also runs an apply in one
 launch: a cooperative grid as large as the card holds at once sweeps the
 field once an iteration, with a grid-wide barrier between iterations and
-the field in L2 (``csrc/cheb_step.cu``).
+the field in L2 (``csrc/cheb_step.cu``), in float32 (``cheb_step``) or
+float64 (``cheb_step_f64``).
 """
 
 from __future__ import annotations
@@ -92,15 +93,16 @@ def cheb_matM_inv_plain(rhs, shift, *, geom: Geometry, degree: int,
 
 def cheb_matM_inv(rhs, shift, *, geom: Geometry, degree: int, dt: float):
     """The preconditioner apply: one launch of the ``cheb_step`` kernel
-    for a CUDA float32 field, the plain twin for a CPU field; raises
-    otherwise."""
+    for a CUDA float32 field (``cheb_step_f64`` for float64), the plain
+    twin for a CPU field; raises otherwise."""
     if rhs.device.type == "cpu":
         return cheb_matM_inv_plain(rhs, shift, geom=geom, degree=degree,
                                    dt=dt)
     if rhs.device.type != "cuda":
         raise RuntimeError(f"cheb_matM_inv: unsupported device {rhs.device}")
+    name = kernels.entry("cheb_step", rhs)
     kernels.check_operand("cheb_step rhs", rhs,
-                          (3, geom.nz, geom.ny, geom.nx))
+                          (3, geom.nz, geom.ny, geom.nx), rhs.dtype)
     if degree < 1:
         raise ValueError("cheb_step: degree must be >= 1")
     s = _as_shift(shift, rhs)
@@ -112,7 +114,7 @@ def cheb_matM_inv(rhs, shift, *, geom: Geometry, degree: int, dt: float):
     r, d0, d1 = torch.empty((3,) + tuple(rhs.shape), dtype=rhs.dtype,
                             device=rhs.device)
     kernels.call(
-        "cheb_step", rhs.data_ptr(), s.data_ptr(), x.data_ptr(),
+        name, rhs.data_ptr(), s.data_ptr(), x.data_ptr(),
         r.data_ptr(), d0.data_ptr(), d1.data_ptr(),
         geom.nx, geom.ny, geom.nz, per[0], per[1], per[2],
         1.0 / geom.dx, 1.0 / geom.dy, 1.0 / geom.dz, beta, beta_lam, degree,

@@ -5,7 +5,7 @@ Parse config -> build simulation -> initialize -> calculate -> finalize,
 with the dimensionless-units banner of ``Simulation::log_information``
 (src/interfaces/simulation.cpp:114-131).  The run goes to ``cuda:0``
 unless ``--device`` says otherwise; the dtype is float64 unless
-``XPIC_X64=0`` (float32, the card's dtype).
+``XPIC_X64=0`` (float32), on the card as on the CPU.
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--device", default=None,
         help="torch device to run on (default cuda:0; 'cpu' for the "
-             "float64 parity path)",
+             "plain PyTorch path of the parity tests)",
     )
     args = parser.parse_args(argv)
 

@@ -7,11 +7,12 @@ reference factory (src/interfaces/simulation.cpp:160-182): ``basic``,
 Device and dtype: the entry points run on the card.  ``device=None``
 means ``cuda:0`` and raises where there is no CUDA device: a run is put
 on the CPU only when the caller asks for it.  ``dtype=None`` follows the
-JAX package's rule: float64 unless ``XPIC_X64=0``.  The port's kernels
-are float32, as the TPU kernels are, so a float64 run on the card is
+JAX package's rule: float64 unless ``XPIC_X64=0`` (float32).  The card
+runs both: every kernel that a float64 path calls has a float64
+instantiation (``kernels.F64_KERNELS``); any other dtype on the card is
 refused at once.  ``mass=None`` reads ``XPIC_MASS`` when the simulation
 is built; the ECSIM family's mass route then follows
-``parallel.step.mass_route``.
+``parallel.step.mass_route`` (float64 always assembles).
 """
 
 from __future__ import annotations
@@ -50,11 +51,10 @@ def build_simulation(cfg: Config, device=None, dtype=None, mass=None):
         raise ValueError(f"unknown simulation scheme: {cfg.scheme!r}")
     device = resolve_device(device)
     dtype = default_dtype() if dtype is None else dtype
-    if device.type == "cuda" and dtype != torch.float32:
+    if device.type == "cuda" and dtype not in (torch.float32, torch.float64):
         raise ValueError(
-            f"{dtype} on the card: the port's CUDA kernels are float32, as "
-            f"the TPU kernels are.  Run with XPIC_X64=0 on the card, or with "
-            f"--device cpu (device='cpu') for the float64 parity path")
+            f"{dtype} on the card: the port's CUDA kernels take float32 and "
+            f"float64 (XPIC_X64=0 selects float32, the default is float64)")
     cls = table[cfg.scheme]
     if issubclass(cls, EcsimSimulation):
         return cls(cfg, device, dtype, mass)
