@@ -17,7 +17,8 @@ Phases:
 
 1. device: card name and power limit, the IEEE float32 pins;
 2. build: one nvcc per source for sm_90a, with ptxas's register and
-   spill lines;
+   spill lines, and each float64 kernel's registers, shared memory a
+   block and resident warps an SM, by the runtime;
 3. kernels against twins: the rebin exchange bitwise at AT = 8, 16, 32,
    64 and 128; the Chebyshev apply to 1e-5 relative on the 32^3 field,
    a 40 x 24 x 12 field with ghosted, periodic and reflective axes and a
@@ -96,8 +97,12 @@ Phases:
     K5 and K7 at K = 96 and 112, K6 at K' = 32 of 96, K' = 96 and on
     the long moves): within 1e-12 of the output's largest magnitude, two
     calls bitwise equal, timed beside the twin and the bound (float64
-    operations at 34 TFLOP/s); the float32 fill kernel and its twin
-    each against the float64 product of the float32 operands;
+    operations at 34 TFLOP/s, the fill's at the tensor cores' 67); the
+    float32 fill kernel and its twin each against the float64 product of
+    the float32 operands; the float64 kernels' edges: the fill with 0,
+    1, 3, 5 and 33 live slots a cell at K = 45 and 77, the segment
+    fields on 9001 cells (no multiple of the persistent grid's stride)
+    with a cell at rest;
 17. the float64 paths at 32^3 x 50 ppc: ``runtime.cli.main`` with
     ``XPIC_X64`` unset on the ECSIM, ecsimcorr, eccapfim and ``basic``
     configs (1 warm-up + 2 timed steps), then 1 + 3 fused ECSIM steps
@@ -134,7 +139,9 @@ the four float64 entry points as rows of their own (``cheb_step_f64``,
 the eccapfim path, the two ecsimcorr runs, the calibration path, the
 ``basic`` path (``launches_basic``) and each float64 path of phase 17
 (``launches_f64_<path>``), its error against its twin, its times
-(``ms``, ``call_ms``), its twin's and its bound.  The ``prims``
+(``ms``, ``call_ms``), its twin's and its bound; the float64 rows also
+``registers``, ``smem_bytes`` (a block), ``threads``, ``warps_per_sm``
+and ``local_bytes``.  The ``prims``
 row's times are the copy probe's (with ``copy_``'s as ``library_ms``),
 its error the largest of the six, and ``probes`` holds each probe's.
 """
@@ -188,8 +195,10 @@ BASIC_PARTS = {
 # sweeps of 33 and a last sweep of 1 (x += d).
 CHEB_FLOPS = 46 + 33 * 10 + 1
 # H100 SXM peaks (vendor datasheet): HBM bytes/s, float32 and float64
-# FLOP/s outside the tensor cores.
+# FLOP/s outside the tensor cores, and float64 on the tensor cores (the
+# float64 fill's products).
 HBM_BPS, F32_FLOPS, F64_FLOPS = 3.35e12, 67e12, 34e12
+F64_MMA_FLOPS = 67e12
 # The float64 kernels against their float64 twins: within 1e-12 of the
 # output's largest magnitude (sums in another order, FMAs).
 F64_TOL = 1e-12
@@ -337,6 +346,15 @@ def main() -> None:
         f"({'cached' if not kernels.BUILD_LOG else 'built'})")
     for ln in regs:
         log(f"    {ln}")
+    # What each float64 kernel takes on this card, by the runtime.
+    f64_info = {n + kernels.F64: kernels.kernel_info(n + kernels.F64)
+                for n in kernels.F64_KERNELS}
+    for kname, info in f64_info.items():
+        log(f"    {kname}: {info['registers']} registers, "
+            f"{info['smem_bytes']} bytes of shared memory a block of "
+            f"{info['threads']} threads, {info['warps_per_sm']} resident "
+            f"warps an SM, {info['local_bytes']} bytes of local memory a "
+            f"thread")
 
     # -- 3. kernels against their twins at the slice's shapes --------------
     geom = Geometry(dx=0.5, dy=0.5, dz=0.5, dt=1.5, nx=SIDE, ny=SIDE,
@@ -688,6 +706,7 @@ def main() -> None:
                    **{f"launches_f64_{path}": n[kname]
                       for path, n in f64_launches.items()})
         row.update(report[kname])
+        row.update(f64_info.get(kname, {}))
         if kname == "rebin_place":
             row["also_replaces"] = ["xpic_tpu/ops/neighbor_rebin.py:496",
                                     "xpic_tpu/ops/neighbor_rebin.py:525"]
@@ -1093,12 +1112,98 @@ def f64_kernels(geom, dev, card):
     float64 product.  Returns the rows: K1's and K6's, and K5's and K7's
     by K."""
     f64 = torch.float64
+    fill_f64_edges(dev)
+    segment_f64_edges(dev)
     return {"cheb_step_f64": cheb_kernel(geom, dev, card, f64),
             "slot_gather_f64": gather_kernel(geom, dev, card, (96, 112),
                                              f64),
             "segment_fields_f64": segment_kernel(geom, dev, card,
                                                  f64)["segment_fields"],
             "ecsim_fill_f64": fill_kernel(geom, dev, card, (96, 112), f64)}
+
+
+def fill_f64_edges(dev):
+    """Phase 16's edges of the float64 fill kernel (its k-steps of 4 live
+    slots, tiles of 32): 16^3 cells at K = 45 and 77 (not multiples of
+    32), 70% of slots live at random, cells 0-4 with 0, 1, 3, 5 and 33
+    live slots; each of those cells within ``F64_TOL`` of its own twin's
+    max (cell 0 exactly zero), the whole within ``F64_TOL``, two calls
+    bitwise equal."""
+    from xpic_tpu_torch.ops.ecsim_kernel import ecsim_fill, ecsim_fill_plain
+
+    kw = dict(q=-1.0, m=1.0, mpw=0.02, dt=1.5)
+    G, counts = 16 ** 3, (0, 1, 3, 5, 33)
+    for K in (45, 77):
+        rng = np.random.default_rng(K)
+        valid = rng.random((G, K)) < 0.7
+        for cell, n in enumerate(counts):
+            valid[cell] = False
+            valid[cell, rng.choice(K, n, replace=False)] = True
+        t, v, B_p = (torch.tensor(a, dtype=torch.float64, device=dev)
+                     for a in (rng.random((G, K, 3)),
+                               0.05 * rng.standard_normal((G, K, 3)),
+                               0.25 * rng.standard_normal((G, K, 3))))
+        valid = torch.tensor(valid, device=dev)
+        got = ecsim_fill(t, v, B_p, valid, **kw)
+        again = ecsim_fill(t, v, B_p, valid, **kw)
+        ref = ecsim_fill_plain(t, v, B_p, valid, **kw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        rel = max(float((a - b).abs().max()) / float(b.abs().max())
+                  for a, b in zip(got, ref))
+        cells = [max(float((a[c] - b[c]).abs().max())
+                     / float(b[c].abs().max()) for a, b in zip(got, ref))
+                 for c in range(1, len(counts))]
+        empty = not any(bool(a[0].any()) for a in got)
+        log(f"[16 f64 kernels] ecsim_fill_f64 edges K={K}: max|d|/max "
+            f"{rel:.3e}; cells of {counts[1:]} live slots {cells} (tol "
+            f"{F64_TOL}); the cell of 0 zero: {empty}; two calls bitwise "
+            f"equal: {same}")
+        check(rel <= F64_TOL and max(cells) <= F64_TOL and empty and same,
+              f"ecsim_fill_f64 edges at K={K}")
+
+
+def segment_f64_edges(dev):
+    """Phase 16's edges of the float64 segment-field kernel (its ring of
+    window stages over a persistent grid): G = 9001 cells (a prime: no
+    multiple of the grid's stride, and more than two strides), K' = 32
+    of 40 and K' = 40 (a second slot group of 8), cell 0 wholly at rest
+    (one segment a slot, the fewest: no slot has none), cell 1 crossing
+    three faces a slot; within ``F64_TOL`` of the twin's max, two calls
+    bitwise equal."""
+    from xpic_tpu_torch.ops.segment_kernel import (
+        segment_fields,
+        segment_fields_plain,
+    )
+
+    G, K = 9001, 40
+    rng = np.random.default_rng(9001)
+
+    def f64(a):
+        return torch.tensor(a, dtype=torch.float64, device=dev)
+
+    Eblk = f64(rng.standard_normal((G, 3, 6, 6, 6)))
+    Bblk = f64(rng.standard_normal((G, 3, 6, 6, 6)))
+    t0 = rng.random((G, K, 3))
+    move = rng.uniform(-0.9, 0.9, (G, K, 3))
+    move[0] = 0.0
+    t0[1] = (0.45, 0.4, 0.35)
+    move[1] = (0.3, 0.25, 0.2)
+    t0, tn = f64(t0), f64(t0 + move)
+    for kp in (32, K):
+        a, b = t0[:, :kp], tn[:, :kp]
+        got = segment_fields(Eblk, Bblk, a, b)
+        again = segment_fields(Eblk, Bblk, a, b)
+        ref = segment_fields_plain(Eblk, Bblk, a, b)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        rel = max(float((x - y).abs().max()) / float(y.abs().max())
+                  for x, y in zip(got, ref))
+        log(f"[16 f64 kernels] segment_fields_f64 edges G={G} K'={kp} of "
+            f"{K}: max|d|/max {rel:.3e} (tol {F64_TOL}), two calls bitwise "
+            f"equal: {same}")
+        check(rel <= F64_TOL and same, f"segment_fields_f64 edges K'={kp}")
+    del Eblk, Bblk, got, again, ref
 
 
 def gather_kernel(geom, dev, card, ks, dtype):
@@ -1811,7 +1916,7 @@ def fill_kernel(geom, dev, card, ks=(96, 112), dtype=torch.float32):
     )
 
     f64 = dtype == torch.float64
-    tag, tol, flops = (("16 f64 kernels", F64_TOL, F64_FLOPS) if f64
+    tag, tol, flops = (("16 f64 kernels", F64_TOL, F64_MMA_FLOPS) if f64
                        else ("3 kernels", FILL_TOL, F32_FLOPS))
     rows = {}
     for slots in ks:

@@ -327,6 +327,8 @@ def test_segment_fields_kernel_matches_twin(dev, kp, shape):
             assert torch.equal(g, a_)
             assert float((g - r).abs().max()) <= \
                 tol * float(r.abs().max()), name
+    if kp == 32 and shape == (16, 16, 16):
+        _segment_fields_f64_ring(dev, rng)
     segs = (split_segments(t0[:, :kp], tn[:, :kp]).diff(dim=-1) != 0).sum(-1)
     assert bool((segs[1] == 1).all()) and bool((segs[2] == 4).all())
     assert set(segs[4].tolist()) == set((1 + mixed[:kp]).tolist())
@@ -335,6 +337,44 @@ def test_segment_fields_kernel_matches_twin(dev, kp, shape):
     longest = ((tn[5, :kp] - t0[5, :kp])[:, None, :]
                * taus.diff(dim=-1)[..., None]).abs().amax(dim=(1, 2))
     assert float(longest[0]) >= 2.4 and float(longest[1]) >= 2.2
+
+
+def _segment_fields_f64_ring(dev, rng):
+    """The float64 kernel's ring of window stages: G = 9001 cells (a
+    prime, so no multiple of the persistent grid's stride, and more than
+    two strides), K' = 32 of 40 and K' = 40 (two slot groups, the second
+    of 8), every slot of cell 0 at rest (one segment a slot, the fewest:
+    tau runs from 0 to 1, so no slot has none), cell 1 crossing three
+    faces a slot, the others moves up to 0.9 cell a axis; within 1e-12 of
+    the twin's max, two calls bitwise equal."""
+    G, K = 9001, 40
+
+    def f64(a):
+        return torch.tensor(a, dtype=torch.float64, device=dev)
+
+    Eblk = f64(rng.standard_normal((G, 3, 6, 6, 6)))
+    Bblk = f64(rng.standard_normal((G, 3, 6, 6, 6)))
+    t0 = rng.random((G, K, 3))
+    move = rng.uniform(-0.9, 0.9, (G, K, 3))
+    move[0] = 0.0
+    t0[1] = (0.45, 0.4, 0.35)
+    move[1] = (0.3, 0.25, 0.2)
+    t0, tn = f64(t0), f64(t0 + move)
+    for kp in (32, K):
+        a, b = t0[:, :kp], tn[:, :kp]
+        before = kernels.LAUNCHES["segment_fields_f64"]
+        got = segment_fields(Eblk, Bblk, a, b)
+        again = segment_fields(Eblk, Bblk, a, b)
+        ref = segment_fields_plain(Eblk, Bblk, a, b)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["segment_fields_f64"] == before + 2
+        for g, a_, r in zip(got, again, ref):
+            assert g.shape == (G, kp, 3) and g.dtype == torch.float64
+            assert torch.equal(g, a_), kp
+            assert float((g - r).abs().max()) <= \
+                1e-12 * float(r.abs().max()), kp
+            assert float((g[:2] - r[:2]).abs().max()) <= \
+                1e-12 * float(r[:2].abs().max()), kp
 
 
 def _fill_inputs(G, K, dev, seed, empty_cell=None, edges=False):
@@ -370,7 +410,8 @@ def test_ecsim_fill_kernel_matches_twin(dev, K):
     """L and Islot within 1e-5 of their largest magnitudes (float64, the
     same inputs cast: 1e-12) and two calls bitwise equal, K past the
     kernel's 32-slot tile included, and from the K = 16 case also K = 1,
-    7 and 512; cell 3 has no live slot, and cells 5-9 hold the edges of
+    7 and 512 and the float64 kernel's edges (``_fill_f64_tiles``); cell
+    3 has no live slot, and cells 5-9 hold the edges of
     ``_fill_inputs``."""
     kw = dict(q=-1.0, m=1.0, mpw=0.02, dt=1.5)
     for k in (K, 1, 7, 512) if K == 16 else (K,):
@@ -401,6 +442,38 @@ def test_ecsim_fill_kernel_matches_twin(dev, K):
                     tol * float(L_p[cell].abs().max()), (case, cell)
                 assert float((Islot[cell] - Islot_p[cell]).abs().max()) \
                     <= tol * float(Islot_p[cell].abs().max()), (case, cell)
+    if K == 16:
+        _fill_f64_tiles(dev, kw)
+
+
+def _fill_f64_tiles(dev, kw):
+    """The float64 kernel's k-steps of 4 live slots and tiles of 32:
+    cells with 0, 1, 3, 5 and 33 live slots (n_live not a multiple of 4
+    or of 32) at K = 45 and 77 (not multiples of 32); each such cell
+    within 1e-12 of its own twin's max, the empty one exactly 0, the
+    whole within 1e-12 and two calls bitwise equal."""
+    for K in (45, 77):
+        t, v, B_p, valid = _fill_inputs(16 ** 3, K, dev, seed=K)
+        rng = np.random.default_rng(K)
+        counts = (0, 1, 3, 5, 33)
+        live = valid.cpu().numpy()
+        for cell, n in enumerate(counts):
+            live[cell] = False
+            live[cell, rng.choice(K, n, replace=False)] = True
+        valid = torch.tensor(live, device=dev)
+        t, v, B_p = t.double(), v.double(), B_p.double()
+        L, Islot = ecsim_fill(t, v, B_p, valid, **kw)
+        L_2, Islot_2 = ecsim_fill(t, v, B_p, valid, **kw)
+        L_p, Islot_p = ecsim_fill_plain(t, v, B_p, valid, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(L, L_2) and torch.equal(Islot, Islot_2), K
+        for got, ref in ((L, L_p), (Islot, Islot_p)):
+            assert float((got - ref).abs().max()) <= \
+                1e-12 * float(ref.abs().max()), K
+            assert not bool(got[0].any()), K
+            for cell in range(1, len(counts)):
+                assert float((got[cell] - ref[cell]).abs().max()) <= \
+                    1e-12 * float(ref[cell].abs().max()), (K, cell)
 
 
 def test_ecsim_fill_wrapper_rejects_what_the_kernel_does_not_take(dev):

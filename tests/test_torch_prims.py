@@ -174,7 +174,8 @@ def test_mass_and_segment_turns_cases_run_on_the_cpu():
     call on column slices whole, and the K6 case's call on those
     operands reads them back in place; ``path_operands`` takes them from
     one eccapfim step and puts the scheme's function back; the K7 case
-    runs on ``fill_operands``, phase 3's drifted and migrated state."""
+    runs on ``fill_operands``, phase 3's drifted and migrated state; the
+    K6 and K7 cases cast their operands to float64 when asked."""
     from xpic_tpu_torch.ops import ecsim_kernel, mass_kernel, segment_kernel
     from xpic_tpu_torch.schemes import eccapfim
 
@@ -205,8 +206,11 @@ def test_mass_and_segment_turns_cases_run_on_the_cpu():
     assert inner is segment_kernel.segment_fields and op["kc"] == 5
     assert torch.equal(op["t0"], t0) and torch.equal(op["tn"], tn)
     calls = turns.CASES["segment_fields"][1](mods, cpu, 4, op)
-    assert sorted(calls) == ["K'=32 of 96", "operands K'=5 of 12"]
+    assert sorted(calls) == ["K'=32 of 96", "K'=32 of 96, long moves",
+                             "operands K'=5 of 12"]
     assert all(v.shape == (64, 32, 3) for v in calls["K'=32 of 96"]())
+    assert all(bool(torch.isfinite(v).all())
+               for v in calls["K'=32 of 96, long moves"]())
     ref = segment_kernel.segment_fields_plain(Eblk, Bblk, t0[:, :5],
                                               tn[:, :5])
     got = calls["operands K'=5 of 12"]()
@@ -232,3 +236,18 @@ def test_mass_and_segment_turns_cases_run_on_the_cpu():
     assert torch.equal(L, ref[0]) and torch.equal(Islot, ref[1])
     L, Islot = calls["random K=112 70% live"]()
     assert L.shape == (64, 3, 12, 3, 12) and bool(torch.isfinite(L).all())
+    # --dtype float64: the same operands, cast, through the twins
+    f64 = torch.float64
+    got = turns.CASES["segment_fields"][1](mods, cpu, 4, op, f64)[
+        f"operands K'={K // 3} of {K}"]()
+    ref = segment_kernel.segment_fields_plain(
+        *(op[k].double() for k in ("Eblk", "Bblk")),
+        op["t0"].double()[:, :K // 3], op["tn"].double()[:, :K // 3])
+    assert got[0].dtype == f64
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    calls = turns.CASES["ecsim_fill"][1](
+        {"ops.ecsim_kernel": ecsim_kernel}, cpu, 4, ops, f64)
+    L, Islot = calls["path K=112"]()
+    ref = ecsim_kernel.ecsim_fill_plain(t.double(), v.double(),
+                                        B_p.double(), valid, **kw)
+    assert L.dtype == f64 and torch.equal(L, ref[0])

@@ -2,7 +2,7 @@
 CUDA card.
 
     python -m xpic_tpu_torch.benchmarks.turns OTHER_ROOT [--kernel NAME]
-        [--side N] [--turns T]
+        [--side N] [--turns T] [--dtype float64]
 
 OTHER_ROOT is the root of another checkout of the repository, for
 example an earlier commit unpacked by ``git archive`` into a directory
@@ -17,13 +17,18 @@ call: the first fast-path call of one eccapfim step at side^3 x 50 ppc
 (:func:`path_operands`, this tree's scheme, run before the timing);
 ``ecsim_fill`` on the drifted and migrated side^3 x 50 ppc state at
 K = 96 and 112 (:func:`fill_operands`, as ``chip_smoke.py``'s phase 3
-makes it) and on random inputs with 70% of slots live.  Each turn times
+makes it) and on random inputs with 70% of slots live.  With ``--dtype
+float64`` the same operands, cast, go through the kernel's float64
+entry point (``kernels.F64_KERNELS``: ``cheb_step``, ``slot_gather``,
+``segment_fields``, ``ecsim_fill``).  Each turn times
 the other tree, this tree, this tree, the other tree: ``ms`` back to back
 (``benchmarks.device_ms``, no host launch gap) and ``call_ms`` (one call
 between two CUDA events, the host's gap in).  Prints one JSON line: the
 turns, each case's medians, each tree's launches a call, the largest
-difference between the two trees' results and the card's name and power
-limit.  Without CUDA it exits non-zero.
+difference between the two trees' results, that difference over the
+largest magnitude of this tree's result, whether the two are bitwise
+equal, and the card's name and power limit.  Without CUDA it exits
+non-zero.
 """
 
 from __future__ import annotations
@@ -78,20 +83,23 @@ def load_other(root: str, names) -> dict:
     return mods
 
 
-def _cheb_case(mods, device, side, operands=None):
+def _cheb_case(mods, device, side, operands=None,
+               dtype=torch.float32):
     """K1: one degree-12 Chebyshev apply on rhs [3, side, side, side]
-    float32, shift 0.37 (a device scalar), periodic, dx = 0.5, dt = 1.5."""
+    in ``dtype``, shift 0.37 (a device scalar), periodic, dx = 0.5,
+    dt = 1.5."""
     geom = mods["config"].Geometry(dx=0.5, dy=0.5, dz=0.5, dt=1.5, nx=side,
                                    ny=side, nz=side, nt=1)
     rng = np.random.default_rng(2)
     rhs = torch.tensor(rng.standard_normal((3, side, side, side)),
-                       dtype=torch.float32, device=device)
-    shift = torch.tensor(0.37, dtype=torch.float32, device=device)
+                       dtype=dtype, device=device)
+    shift = torch.tensor(0.37, dtype=dtype, device=device)
     cheb = mods["ops.stencil_kernel"].cheb_matM_inv
     return lambda: cheb(rhs, shift, geom=geom, degree=12, dt=geom.dt)
 
 
-def _mass_case(mods, device, side, operands=None):
+def _mass_case(mods, device, side, operands=None,
+               dtype=torch.float32):
     """K4: Y = W^T M W xg on side^3 cells at K = 80 (the fused path) and
     112 (the CLI and ecsimcorr runs): 50 live slots a cell at random
     positions, |b| ~ 0.2, padding slots at the cell centre with coef 0."""
@@ -115,29 +123,32 @@ def _mass_case(mods, device, side, operands=None):
     return calls
 
 
-def _gather_case(mods, device, side, operands=None):
+def _gather_case(mods, device, side, operands=None,
+                 dtype=torch.float32):
     """K5: E at the slots from the slot values on side^3 cells at K = 80
     (the fused path) and 112 (the CLI and ecsimcorr runs): t uniform in
-    the cell, Fg ~ N(0, 1), numpy seed K."""
+    the cell, Fg ~ N(0, 1), numpy seed K, in ``dtype``."""
     gather = mods["ops.ecsim_kernel"].ecsim_gather
     G = side ** 3
     calls = {}
     for K in (80, 112):
         rng = np.random.default_rng(K)
-        t = torch.tensor(rng.random((G, K, 3)), dtype=torch.float32,
-                         device=device)
-        Fg = torch.tensor(rng.standard_normal((G, 3, 12)),
-                          dtype=torch.float32, device=device)
+        t = torch.tensor(rng.random((G, K, 3)), dtype=dtype, device=device)
+        Fg = torch.tensor(rng.standard_normal((G, 3, 12)), dtype=dtype,
+                          device=device)
         calls[f"K={K}"] = lambda t=t, Fg=Fg: gather(t, Fg)
     return calls
 
 
-def _segment_case(mods, device, side, operands=None):
+def _segment_case(mods, device, side, operands=None,
+                  dtype=torch.float32):
     """K6: K' = 32 crosser columns of [side^3, 96, 3] moves, read in
     place, as in chip_smoke's phase 3: positions uniform in the cell,
     moves uniform in +-0.9 cell a axis (1 to 4 segments), the first 4
-    slots at rest, windows N(0, 0.1^2); and the call ``operands``
-    (:func:`path_operands`) when given."""
+    slots at rest, windows N(0, 0.1^2), drawn in float32 and cast to
+    ``dtype``; the same columns with moves of 1.1 to 2.5 cells a axis
+    (the kernel's whole-window branch); and the call ``operands``
+    (:func:`path_operands`, cast) when given."""
     fields = mods["ops.segment_kernel"].segment_fields
     G = side ** 3
     rng = np.random.default_rng(11)
@@ -146,33 +157,44 @@ def _segment_case(mods, device, side, operands=None):
     move[:, :4] = 0.0
 
     def f32(a):
-        return torch.tensor(a, dtype=torch.float32, device=device)
+        return torch.tensor(a, dtype=torch.float32,
+                            device=device).to(dtype)
 
     Eblk = f32(0.1 * rng.standard_normal((G, 3, 6, 6, 6)))
     Bblk = f32(0.1 * rng.standard_normal((G, 3, 6, 6, 6)))
     a, b = f32(t0), f32(t0 + move)
-    calls = {"K'=32 of 96": lambda: fields(Eblk, Bblk, a[:, :32],
-                                           b[:, :32])}
+    far = f32(t0 + rng.uniform(1.1, 2.5, (G, 96, 3))
+              * rng.choice([-1.0, 1.0], (G, 96, 3)))
+    calls = {
+        "K'=32 of 96": lambda: fields(Eblk, Bblk, a[:, :32], b[:, :32]),
+        "K'=32 of 96, long moves": lambda: fields(Eblk, Bblk, a[:, :32],
+                                                  far[:, :32])}
     if operands is not None:
-        op, kc = operands, operands["kc"]
+        op = {k: v.to(dtype) for k, v in operands.items() if k != "kc"}
+        kc = operands["kc"]
         calls[f"operands K'={kc} of {op['t0'].shape[1]}"] = lambda: fields(
             op["Eblk"], op["Bblk"], op["t0"][:, :kc], op["tn"][:, :kc])
     return calls
 
 
-def _fill_case(mods, device, side, operands=None):
+def _fill_case(mods, device, side, operands=None,
+               dtype=torch.float32):
     """K7: the ECSIM fill on ``operands`` ({K: :func:`fill_operands`},
     K = 96 and 112) and on random inputs at K = 112 with 70% of slots
     live: t uniform in the cell, v ~ N(0, 0.05^2), B_p ~ N(0, 0.25^2)
-    (|b| ~ 0.2 at q/m = -1, dt = 1.5), numpy seed 7."""
+    (|b| ~ 0.2 at q/m = -1, dt = 1.5), numpy seed 7; t, v and B_p drawn
+    in float32 and cast to ``dtype``."""
     fill = mods["ops.ecsim_kernel"].ecsim_fill
-    calls = {f"path K={K}": lambda args=args, kw=kw: fill(*args, **kw)
-             for K, (args, kw) in operands.items()}
+    calls = {}
+    for K, (args, kw) in operands.items():
+        args = tuple(a.to(dtype) for a in args[:3]) + tuple(args[3:])
+        calls[f"path K={K}"] = lambda args=args, kw=kw: fill(*args, **kw)
     G, K = side ** 3, 112
     rng = np.random.default_rng(7)
 
     def f32(a):
-        return torch.tensor(a, dtype=torch.float32, device=device)
+        return torch.tensor(a, dtype=torch.float32,
+                            device=device).to(dtype)
 
     valid = torch.tensor(rng.random((G, K)) < 0.7, device=device)
     t, v, B_p = (f32(rng.random((G, K, 3))),
@@ -301,8 +323,8 @@ def path_operands(device, side, ppc=50) -> dict:
 
 
 # kernel -> (the modules its case calls, the case: (modules, device,
-# side, the operands of a real call or None) -> one call of the kernel's
-# wrapper, or {case name: call})
+# side, the operands of a real call or None, dtype) -> one call of the
+# kernel's wrapper, or {case name: call})
 CASES = {"cheb_step": (("ops.stencil_kernel", "config"), _cheb_case),
          "mass_apply": (("ops.mass_kernel",), _mass_case),
          "slot_gather": (("ops.ecsim_kernel",), _gather_case),
@@ -326,25 +348,44 @@ def _max_diff(a, b) -> float:
     return float((a - b).abs().max())
 
 
-def run(other_root: str, kernel: str, side: int, turns: int,
-        device) -> dict:
+def _max_rel_diff(a, b) -> float:
+    """The largest of each output's max |a - b| over its max |a|."""
+    if isinstance(a, (tuple, list)):
+        return max(_max_rel_diff(x, y) for x, y in zip(a, b))
+    return float((a - b).abs().max()) / max(float(a.abs().max()), 1e-300)
+
+
+def _bitwise(a, b) -> bool:
+    if isinstance(a, (tuple, list)):
+        return all(_bitwise(x, y) for x, y in zip(a, b))
+    return bool(torch.equal(a, b))
+
+
+def run(other_root: str, kernel: str, side: int, turns: int, device,
+        dtype=torch.float32) -> dict:
     names, case = CASES[kernel]
+    from .. import kernels
+
+    if dtype == torch.float64 and kernel not in kernels.F64_KERNELS:
+        raise SystemExit(f"{kernel} has no float64 entry point")
+    # the launch counter of the entry point that ``dtype`` takes
+    counter = kernel + (kernels.F64 if dtype == torch.float64 else "")
     trees = {"this": {m: importlib.import_module(f"{_PKG}.{m}")
                       for m in (*names, "kernels")},
              "other": load_other(other_root, names)}
     operands = _operands(kernel, device, side)
     calls, results, launches = {}, {}, {}
     for tree, mods in trees.items():
-        made = case(mods, device, side, operands)
+        made = case(mods, device, side, operands, dtype)
         calls[tree] = made if isinstance(made, dict) else {
             f"side={side}": made}
         counts = mods["kernels"]
         counts.load()
         launches[tree] = {}
         for label, fn in calls[tree].items():
-            before = counts.LAUNCHES[kernel]
+            before = counts.LAUNCHES[counter]
             results[tree, label] = fn()
-            launches[tree][label] = counts.LAUNCHES[kernel] - before
+            launches[tree][label] = counts.LAUNCHES[counter] - before
     torch.cuda.synchronize(device)
     rows = []
     for label in calls["this"]:
@@ -358,12 +399,14 @@ def run(other_root: str, kernel: str, side: int, turns: int,
         r[key] for r in rows if r["case"] == label and r["tree"] == tree)
         for tree in ("this", "other") for key in ("ms", "call_ms")}
         for label in calls["this"]}
+    pairs = {label: (results["this", label], results["other", label])
+             for label in calls["this"]}
     return dict(
-        kernel=kernel, side=side, turns=rows,
+        kernel=kernel, entry=counter, side=side, turns=rows,
         medians=medians, launches_per_call=launches,
-        max_abs_diff={label: _max_diff(results["this", label],
-                                       results["other", label])
-                      for label in calls["this"]},
+        max_abs_diff={k: _max_diff(*p) for k, p in pairs.items()},
+        max_rel_diff={k: _max_rel_diff(*p) for k, p in pairs.items()},
+        bitwise={k: _bitwise(*p) for k, p in pairs.items()},
         other_root=os.path.abspath(other_root), device=card_label(device))
 
 
@@ -377,10 +420,14 @@ def main(argv=None) -> int:
                         help="cells a side of the field (default 32)")
     parser.add_argument("--turns", type=int, default=2,
                         help="turns of other, this, this, other (default 2)")
+    parser.add_argument("--dtype", choices=("float32", "float64"),
+                        default="float32",
+                        help="the operands' dtype (float64: the kernel's "
+                             "float64 entry point)")
     args = parser.parse_args(argv)
     device = resolve_device("cuda:0")
     print(json.dumps(run(args.other_root, args.kernel, args.side, args.turns,
-                         device)))
+                         device, getattr(torch, args.dtype))))
     return 0
 
 

@@ -264,3 +264,7 @@ XPIC_API int xpic_cheb_step_f64(const double* rhs, const double* shift,
   return launch(rhs, shift, x, r, d0, d1, nx, ny, nz, px, py, pz, ix, iy, iz,
                 beta, beta_lam, degree, stream);
 }
+
+XPIC_API int xpic_cheb_step_f64_info(int* out) {
+  return kernel_info(cheb_apply_kernel<double>, kThreads, 0, out);
+}

@@ -27,6 +27,27 @@ inline int warp_blocks(int n_warps) {
   return (n_warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
 }
 
+// What a kernel takes on this card, into out[5]: registers a thread,
+// shared memory a block (static and the launch's dynamic bytes), threads
+// a block, resident warps an SM, and local memory a thread (spills).
+template <typename Kernel>
+int kernel_info(Kernel* kernel, int threads, int dynamic_smem, int* out) {
+  cudaFuncAttributes a;
+  int per_sm = 0;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads,
+                                                        dynamic_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.sharedSizeBytes) + dynamic_smem;
+  out[2] = threads;
+  out[3] = per_sm * threads / 32;
+  out[4] = static_cast<int>(a.localSizeBytes);
+  return 0;
+}
+
 // The math of the kernels that take both element types T (float and
 // double): one overload a type, so that a kernel templated on T calls
 // the float intrinsic for float, its float machine code unchanged, and

@@ -15,11 +15,11 @@
 // Inputs: t, v, B_p [G, K, 3] (the JAX package's layout), valid [G, K]
 // bool (one byte a slot).  Outputs: L [G, 3, 12, 3, 12] and Islot
 // [G, 3, 12].  K is a launch argument, 1 to 512.  One source, two element
-// types: xpic_ecsim_fill takes float32 and forms the products on tensor
-// cores (below), xpic_ecsim_fill_f64 takes float64 (the float64 path of
-// ECSIM and ecsimcorr, which always assembles) and forms them as DFMA
-// loops; both instantiate one kernel template and share its live-slot
-// list, its staging and its weights.
+// types: xpic_ecsim_fill takes float32 and forms the products on the
+// TF32 tensor cores, xpic_ecsim_fill_f64 takes float64 (the float64
+// path of ECSIM and ecsimcorr, which always assembles) and forms them on
+// the FP64 tensor cores; the two kernels share the live-slot list, the
+// weights and the particle terms.
 //
 // Bound on the H100: bytes, counted from what the inputs need.  The
 // kernel reads t, v and B_p of live slots only (36 bytes a slot), the
@@ -71,27 +71,36 @@
 // MMAs a sixth) on top of the staging, whose loads and arithmetic cost
 // as much again; 127 registers leave 16 warps an SM to hide them.
 //
-// Design (float64): the same live-slot list and the same staging, once
-// a live slot, 32 at a time, into a row of 50 doubles (the 36 weights,
-// then per c the double2 pairs (A_p matB_c0, A_p matB_c1) and
-// (A_p matB_c2, I_p,c); 50 mod 16 = 2, so a double2 store of 8 lanes
-// into 8 rows hits 8 distinct 16-byte bank groups).  Two cells a block:
-// the float tile of 32 x 56 floats would take 57 KB a block of four in
-// double, past the 48 KB of static shared memory; two take 27.6 KB.
-// The products have no float64 tensor-core form in mma.sync m16n8k8, so
-// they run as DFMA loops: the 1,332 outputs of a cell are 90 work units,
-// the 81 4 x 4 sub-blocks of L (3 x 3 in each of the nine 12 x 12
-// (c, d) blocks) and the 9 quads of Islot, unit u = lane + 32 q, q < 3.
-// For each staged slot a lane reads its units' weight quads (double2
-// loads) and A_p matB_cd, forms z_j = A_p matB_cd W_d[j] and adds
-// W_c[i] z_j into its accumulators (at most 48 doubles), the order of
-// the twin's assemble_blocks (M W first, then the K-sum), so the sums
-// differ from the twin's only by the rounding of their order.  Bound:
-// 72 n_live + G K + 8 G 1332 bytes (471 MB, 0.141 ms at K = 112 on the
-// 32^3 x 50 ppc state) against 2,632 operations a live slot at
-// 34 TFLOP/s (0.127 ms): bytes.
+// Design (float64): the same live-slot list, and the products on the FP64
+// tensor cores (DMMA, mma.sync m16n8k8 .f64): per row component c the float32
+// design's product C_c [12 -> 16, 40] = W_c [12, n] [Z_c | I_c | 0] [n, 40],
+// five n-tiles of 16 x 8, 8 live slots a k-step (a tile's last step padded
+// with zero rows).  DMMA takes float64 in and accumulates in float64, so there
+// is no hi/lo split; it adds a step's products in slot order with one rounding
+// each, so L and Islot come out bit for bit as a DFMA loop over the slots
+// gives them (the earlier design's, in turns: H100 80GB HBM3 at 700 W, PERF.md
+// §6).  Three warps a cell, one block: warp c forms C_c, 20 accumulators a
+// lane (a warp with all three would hold 60).  The three share one staging:
+// the list is taken 64 live slots at a time, and lane l of warp c loads slots
+// l and l + 32 (both loads issued before either is staged), computes their
+// hats and writes its part of their rows, W_c[0..11] and (A_p matB_c0, A_p
+// matB_c1, A_p matB_c2, I_p,c): each row is staged once, and __syncthreads
+// orders the tile between the warps.  A row is 52 doubles (52 mod 16 = 4): the
+// four rows one fragment load touches start 4 double-banks apart, so each
+// half-warp hits 16 distinct bank pairs.  A lane reads 7 weights and 2 double2
+// of each of its two slot rows for the 5 MMAs of a step and forms its Z_c
+// entries itself.  Warp 0 builds the list from every valid byte of the cell
+// loaded at once (live_list_loaded), so a cell waits for one load there, not
+// one a 32 slots.  The accumulators go straight from the fragments to L and
+// Islot as double2 stores.  128 registers, 27.7 KB of shared memory a block,
+// 15 warps an SM.  Bound: 72 n_live + G K + 8 G 1332 bytes (0.141 ms at K =
+// 112 on the 32^3 x 50 ppc state) against 2,632 operations a live slot at the
+// DMMA's 67 TFLOP/s (0.064 ms; 0.099 with the 16/12 rows, the 40/37 columns
+// and the padding to 8 slots): bytes.  What holds it back (H100 80GB HBM3 at
+// 700 W, PERF.md §6): the staging, whose loads wait on the list and the block
+// on its barriers (0.118 of 0.279 ms in a build without it); the products cost
+// 0.054.
 #include <cstdint>
-#include <type_traits>
 
 #include "common.cuh"
 #include "slot_weights.cuh"
@@ -117,9 +126,10 @@ struct Fill<float> {
 };
 template <>
 struct Fill<double> {
-  static constexpr int kCells = 2;
+  static constexpr int kWarps = 3;    // warps a block: one cell, one a c
+  static constexpr int kTile = 64;    // live slots staged at a time
   static constexpr int kRowM = 3 * kSlots;    // 36
-  static constexpr int kRowStride = 50;
+  static constexpr int kRowStride = 52;
 };
 
 // Four values into a row at p (16-byte aligned): one float4 or two
@@ -134,33 +144,48 @@ __device__ __forceinline__ void put4(double* p, double a, double b,
   reinterpret_cast<double2*>(p)[1] = make_double2(c, d);
 }
 
-// W_c[s] of one slot, c-major, in the plain twin's product order
+// W_C[s] of one slot, in the plain twin's product order
 // (outer * mid) * inner.
+template <int C, typename T>
+__device__ __forceinline__ void component_weights(const AxisHats<T>& hx,
+                                                  const AxisHats<T>& hy,
+                                                  const AxisHats<T>& hz,
+                                                  T* w) {
+  if constexpr (C == 0) {
+#pragma unroll
+    for (int o = 0; o < 2; ++o)
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          w[(o * 2 + m) * 3 + i] = hz.n[o] * hy.n[m] * hx.s[i];
+  } else if constexpr (C == 1) {
+#pragma unroll
+    for (int o = 0; o < 2; ++o)
+#pragma unroll
+      for (int m = 0; m < 3; ++m)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          w[(o * 3 + m) * 2 + i] = hz.n[o] * hy.s[m] * hx.n[i];
+  } else {
+#pragma unroll
+    for (int o = 0; o < 3; ++o)
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          w[(o * 2 + m) * 2 + i] = hz.s[o] * hy.n[m] * hx.n[i];
+  }
+}
+
+// W_c[s] of one slot, c-major.
 template <typename T>
 __device__ __forceinline__ void slot_weights(const AxisHats<T>& hx,
                                              const AxisHats<T>& hy,
                                              const AxisHats<T>& hz, T* w) {
-#pragma unroll
-  for (int o = 0; o < 2; ++o)
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-        w[(o * 2 + m) * 3 + i] = hz.n[o] * hy.n[m] * hx.s[i];
-#pragma unroll
-  for (int o = 0; o < 2; ++o)
-#pragma unroll
-    for (int m = 0; m < 3; ++m)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        w[kSlots + (o * 3 + m) * 2 + i] = hz.n[o] * hy.s[m] * hx.n[i];
-#pragma unroll
-  for (int o = 0; o < 3; ++o)
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        w[2 * kSlots + (o * 2 + m) * 2 + i] = hz.s[o] * hy.n[m] * hx.n[i];
+  component_weights<0>(hx, hy, hz, w);
+  component_weights<1>(hx, hy, hz, w + kSlots);
+  component_weights<2>(hx, hy, hz, w + 2 * kSlots);
 }
 
 // Row c of matB(b) = I + b b^T + the antisymmetric part of b.
@@ -176,8 +201,8 @@ __device__ __forceinline__ void rotation_row(int c, T bx, T by, T bz,
   }
 }
 
-// Slot sk's row of the tile (sk < 0: a zero row, the padding of a step
-// of the float32 products).
+// Slot sk's row of the float32 tile (sk < 0: a zero row, the padding of
+// a step of the products).
 template <typename T>
 __device__ __forceinline__ void stage_slot(
     const T* __restrict__ t, const T* __restrict__ v,
@@ -205,8 +230,7 @@ __device__ __forceinline__ void stage_slot(
 #pragma unroll
   for (int q = 0; q < 3 * kSlots / 4; ++q)
     put4(sr + 4 * q, w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
-  if constexpr (std::is_same<T, float>::value)
-    put4(sr + Fill<T>::kRowOne, T(1), T(0), T(0), T(0));
+  put4(sr + Fill<T>::kRowOne, T(1), T(0), T(0), T(0));
   const T a = coef_a * inv;
   const T ci = coef_i * inv;
   const T vb = vx * bx + vy * by + vz * bz;
@@ -356,144 +380,179 @@ __device__ __forceinline__ void tf32_products(
     }
 }
 
-// The float64 work units (see the header): 81 sub-blocks of L, then 9
-// quads of Islot; a lane takes units lane, lane + 32 and lane + 64.
-constexpr int kLUnits = 81;
-constexpr int kUnits = kLUnits + 9;
-
-// Unit u's offsets in a staged row: its W_c quad, its W_d quad (L units)
-// and its A_p matB_cd (L) or I_p,c (Islot); and its first output.
-struct Unit {
-  int wc, wd, m, out;
-
-  __device__ __forceinline__ static Unit of(int u) {
-    constexpr int kRowM = Fill<double>::kRowM;
-    Unit x;
-    if (u < kLUnits) {
-      const int cd = u / 9, c = cd / 3, d = cd % 3;
-      const int i4 = 4 * ((u % 9) / 3), j4 = 4 * (u % 3);
-      x.wc = c * kSlots + i4;
-      x.wd = d * kSlots + j4;
-      x.m = kRowM + 4 * c + d;
-      x.out = (c * kSlots + i4) * (3 * kSlots) + d * kSlots + j4;
-    } else {
-      const int c = (u - kLUnits) / 3, i4 = 4 * ((u - kLUnits) % 3);
-      x.wc = c * kSlots + i4;
-      x.wd = 0;
-      x.m = kRowM + 4 * c + 3;
-      x.out = c * kSlots + i4;
-    }
-    return x;
-  }
+// A live slot's operands: t, v and B_p.
+struct SlotIn {
+  double t[3], v[3], b[3];
 };
 
-// acc[4 i + j] += W_c[i] (A_p matB_cd W_d[j]) for one staged row r.
-__device__ __forceinline__ void l_unit(const double* r, const Unit& x,
-                                       double* acc) {
-  const double2 a01 = *reinterpret_cast<const double2*>(r + x.wc);
-  const double2 a23 = *reinterpret_cast<const double2*>(r + x.wc + 2);
-  const double2 b01 = *reinterpret_cast<const double2*>(r + x.wd);
-  const double2 b23 = *reinterpret_cast<const double2*>(r + x.wd + 2);
-  const double m = r[x.m];
-  const double a[4] = {a01.x, a01.y, a23.x, a23.y};
-  const double z[4] = {m * b01.x, m * b01.y, m * b23.x, m * b23.y};
+__device__ __forceinline__ SlotIn load_slot(const double* __restrict__ t,
+                                            const double* __restrict__ v,
+                                            const double* __restrict__ Bp,
+                                            long long sk) {
+  SlotIn s;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      acc[4 * i + j] = fma(a[i], z[j], acc[4 * i + j]);
-}
-
-// A 4 x 4 sub-block of L from its accumulators, as double2 pairs.
-__device__ __forceinline__ void store_l(double* o, const double* acc) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    double2* p = reinterpret_cast<double2*>(o + i * 3 * kSlots);
-    p[0] = make_double2(acc[4 * i], acc[4 * i + 1]);
-    p[1] = make_double2(acc[4 * i + 2], acc[4 * i + 3]);
+  for (int ax = 0; ax < 3; ++ax) {
+    s.t[ax] = __ldg(t + 3 * sk + ax);
+    s.v[ax] = __ldg(v + 3 * sk + ax);
+    s.b[ax] = __ldg(Bp + 3 * sk + ax);
   }
+  return s;
 }
 
-// The float64 products of cell g as DFMA loops, from its list of n_live
-// live slots; writes the cell's L and Islot.
+// Component c's part of a slot's row, written by a lane of warp c:
+// W_c[0..11] at c * 12 and (A_p matB_c0, A_p matB_c1, A_p matB_c2,
+// I_p,c) at kRowM + 4 c (zeros when the row is no live slot's: the
+// padding of a k-step).  The values are those of stage_slot, in the same
+// order.
+__device__ __forceinline__ void stage_component(int c, const SlotIn& in,
+                                                bool live, double half,
+                                                double coef_a,
+                                                double coef_i, double* sr) {
+  constexpr int kRowM = Fill<double>::kRowM;
+  double* wr = sr + c * kSlots;
+  double* mr = sr + kRowM + 4 * c;
+  if (!live) {
+#pragma unroll
+    for (int q = 0; q < kSlots / 4; ++q) put4(wr + 4 * q, 0.0, 0.0, 0.0, 0.0);
+    put4(mr, 0.0, 0.0, 0.0, 0.0);
+    return;
+  }
+  const AxisHats<double> hx = axis_hats(in.t[0]);
+  const AxisHats<double> hy = axis_hats(in.t[1]);
+  const AxisHats<double> hz = axis_hats(in.t[2]);
+  const double bx = in.b[0] * half;
+  const double by = in.b[1] * half;
+  const double bz = in.b[2] * half;
+  const double vx = in.v[0], vy = in.v[1], vz = in.v[2];
+  const double inv = 1.0 / (1.0 + (bx * bx + by * by + bz * bz));
+  double w[kSlots];
+  if (c == 0)
+    component_weights<0>(hx, hy, hz, w);
+  else if (c == 1)
+    component_weights<1>(hx, hy, hz, w);
+  else
+    component_weights<2>(hx, hy, hz, w);
+#pragma unroll
+  for (int q = 0; q < kSlots / 4; ++q)
+    put4(wr + 4 * q, w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
+  const double a = coef_a * inv;
+  const double ci = coef_i * inv;
+  const double vb = vx * bx + vy * by + vz * bz;
+  const double I = c == 0 ? ci * (vx + (vy * bz - vz * by) + vb * bx)
+                 : c == 1 ? ci * (vy + (vz * bx - vx * bz) + vb * by)
+                          : ci * (vz + (vx * by - vy * bx) + vb * bz);
+  double rot[3];
+  rotation_row(c, bx, by, bz, rot);
+  put4(mr, a * rot[0], a * rot[1], a * rot[2], I);
+}
+
+// d += a b on the FP64 tensor cores (DMMA): a 16 x 8 (row), b 8 x 8
+// (col), float64 in and accumulate.  Fragments: a[2 h + e] =
+// A[gq + 8 e][tq + 4 h], b[h] = B[tq + 4 h][gq], d[2 e + j] =
+// D[gq + 8 e][2 tq + j] (gq = lane / 4, tq = lane % 4).
+__device__ __forceinline__ void mma_f64(double* d, const double* a,
+                                        const double* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+// Row component c's products of one cell, by warp c of its block, from
+// the cell's list of n_live live slots; writes the c rows of the cell's
+// L and Islot.
 __device__ __forceinline__ void f64_products(
-    const double* __restrict__ t, const double* __restrict__ v,
+    int c, const double* __restrict__ t, const double* __restrict__ v,
     const double* __restrict__ Bp, const unsigned short* list,
     double* tile, int n_live, long long row, int g, int lane, double half,
     double coef_a, double coef_i, double* __restrict__ L,
     double* __restrict__ Islot) {
+  constexpr int kRowM = Fill<double>::kRowM;
   constexpr int kRowStride = Fill<double>::kRowStride;
-  // Units lane and lane + 32 are sub-blocks of L; unit lane + 64 is one
-  // for lanes 0-16, a quad of Islot for lanes 17-25 and none after.
-  const Unit u0 = Unit::of(lane), u1 = Unit::of(lane + 32);
-  const int u = lane + 64;
-  const Unit u2 = Unit::of(u < kUnits ? u : 0);
-  const bool l2 = u < kLUnits, i2 = u >= kLUnits && u < kUnits;
-  double acc[3][16];
+  // The fragment coordinates: group gq (rows gq, gq + 8 of A and C,
+  // column gq of B) and thread tq (k-columns tq, tq + 4 of A, rows of
+  // B: the step's slots).
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  // Column 8 + gq of n-tile 1 has d = 0 for gq < 4, d = 1 after; column
+  // 32 + gq of n-tile 4 has d = 2 for gq < 4, I_p,c at 4 and 0 after.
+  const bool low = gq < 4;
+  double acc[5][4];
 #pragma unroll
-  for (int q = 0; q < 3; ++q)
+  for (int nt = 0; nt < 5; ++nt)
 #pragma unroll
-    for (int e = 0; e < 16; ++e) acc[q][e] = 0.0;
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0;
 
-  for (int c0 = 0; c0 < n_live; c0 += kTile) {
-    const int n = min(kTile, n_live - c0);
-    __syncwarp();  // the list is written, the last tile read
-    if (lane < n)
-      stage_slot(t, v, Bp, row + list[c0 + lane], half, coef_a, coef_i,
-                 tile + lane * kRowStride);
-    __syncwarp();
-    for (int k = 0; k < n; ++k) {
-      const double* r = tile + k * kRowStride;
-      l_unit(r, u0, acc[0]);
-      l_unit(r, u1, acc[1]);
-      if (l2) {
-        l_unit(r, u2, acc[2]);
-      } else if (i2) {
-        const double2 a01 = *reinterpret_cast<const double2*>(r + u2.wc);
-        const double2 a23 =
-            *reinterpret_cast<const double2*>(r + u2.wc + 2);
-        const double m = r[u2.m];
-        acc[2][0] = fma(a01.x, m, acc[2][0]);
-        acc[2][1] = fma(a01.y, m, acc[2][1]);
-        acc[2][2] = fma(a23.x, m, acc[2][2]);
-        acc[2][3] = fma(a23.y, m, acc[2][3]);
+  constexpr int kTileF64 = Fill<double>::kTile;
+  for (int c0 = 0; c0 < n_live; c0 += kTileF64) {
+    const int n = min(kTileF64, n_live - c0);
+    // Rows lane and lane + 32, their loads issued together; the second
+    // only where the k-steps reach it.
+    const int rows = n > 32 ? 2 : 1;
+    SlotIn in[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (h < rows && lane + 32 * h < n)
+        in[h] = load_slot(t, v, Bp, row + list[c0 + lane + 32 * h]);
+    if (c0 > 0) __syncthreads();  // the last tile read by all three warps
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (h < rows)
+        stage_component(c, in[h], lane + 32 * h < n, half, coef_a, coef_i,
+                        tile + (lane + 32 * h) * kRowStride);
+    __syncthreads();
+    // 8 live slots a step.
+    for (int k8 = 0; k8 < n; k8 += 8) {
+      // A's rows gq and 8 + gq at the step's slots tq and tq + 4:
+      // W_c[gq], W_c[8 + gq] (rows 12-15 of C_c read the next weights
+      // and are never stored); Z_c at this lane's columns nt * 8 + gq.
+      double a[4], z[5][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const double* r = tile + (k8 + tq + 4 * h) * kRowStride;
+        a[2 * h] = r[c * kSlots + gq];
+        a[2 * h + 1] = r[c * kSlots + 8 + gq];
+        const double2* m =
+            reinterpret_cast<const double2*>(r + kRowM + 4 * c);
+        const double2 m01 = m[0], m23 = m[1];
+        z[0][h] = r[gq] * m01.x;
+        z[1][h] = r[8 + gq] * (low ? m01.x : m01.y);
+        z[2][h] = r[16 + gq] * m01.y;
+        z[3][h] = r[24 + gq] * m23.x;
+        z[4][h] = low ? r[32 + gq] * m23.x : gq == 4 ? m23.y : 0.0;
       }
+#pragma unroll
+      for (int nt = 0; nt < 5; ++nt) mma_f64(acc[nt], a, z[nt]);
     }
   }
 
+  // Straight from the fragments: rows gq and 8 + gq (below 12), columns
+  // nt * 8 + 2 tq and the next, as double2 stores.
   double* Lg = L + static_cast<size_t>(g) * kBlockSize;
   double* Ig = Islot + static_cast<size_t>(g) * 3 * kSlots;
-  store_l(Lg + u0.out, acc[0]);
-  store_l(Lg + u1.out, acc[1]);
-  if (l2) {
-    store_l(Lg + u2.out, acc[2]);
-  } else if (i2) {
-    reinterpret_cast<double2*>(Ig + u2.out)[0] =
-        make_double2(acc[2][0], acc[2][1]);
-    reinterpret_cast<double2*>(Ig + u2.out)[1] =
-        make_double2(acc[2][2], acc[2][3]);
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int i = gq + 8 * e;
+    if (i >= kSlots) continue;
+#pragma unroll
+    for (int nt = 0; nt < 5; ++nt) {
+      const int col = nt * 8 + 2 * tq;
+      const double* d = acc[nt] + 2 * e;
+      if (col < 3 * kSlots)
+        *reinterpret_cast<double2*>(Lg + (c * kSlots + i) * (3 * kSlots) +
+                                    col) = make_double2(d[0], d[1]);
+      else if (col == 3 * kSlots)
+        Ig[c * kSlots + i] = d[0];
+    }
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(32 * Fill<T>::kCells)
-ecsim_fill_kernel(const T* __restrict__ t, const T* __restrict__ v,
-                  const T* __restrict__ Bp,
-                  const unsigned char* __restrict__ valid,
-                  T* __restrict__ L, T* __restrict__ Islot, int G, int K,
-                  T half, T coef_a, T coef_i) {
-  constexpr int kCells = Fill<T>::kCells;
-  __shared__ __align__(16) T tiles[kCells][kTile * Fill<T>::kRowStride];
-  __shared__ unsigned short lists[kCells][kMaxK];
-  const int warp = threadIdx.x >> 5;
-  const int lane = lane_id();
-  const int g = blockIdx.x * kCells + warp;
-  if (g >= G) return;
-  T* tile = tiles[warp];
-  unsigned short* list = lists[warp];
-  const long long row = static_cast<long long>(g) * K;
-
-  // The live slots' indices, in slot order.
+// The live slots' indices of the cell at row, in slot order, into list
+// (one warp); returns their count.
+__device__ __forceinline__ int live_list(
+    const unsigned char* __restrict__ valid, long long row, int K, int lane,
+    unsigned short* list) {
   int n_live = 0;
   for (int k0 = 0; k0 < K; k0 += 32) {
     const int k = k0 + lane;
@@ -502,26 +561,82 @@ ecsim_fill_kernel(const T* __restrict__ t, const T* __restrict__ v,
     if (live) list[n_live + __popc(mask & ((1u << lane) - 1u))] = k;
     n_live += __popc(mask);
   }
-
-  if constexpr (std::is_same<T, float>::value)
-    tf32_products(t, v, Bp, list, tile, n_live, row, g, lane, half, coef_a,
-                  coef_i, L, Islot);
-  else
-    f64_products(t, v, Bp, list, tile, n_live, row, g, lane, half, coef_a,
-                 coef_i, L, Islot);
+  return n_live;
 }
 
-template <typename T>
-int launch(const T* t, const T* v, const T* Bp, const unsigned char* valid,
-           T* L, T* Islot, int G, int K, T half, T coef_a, T coef_i,
-           void* stream) {
-  if (K < 1 || K > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kCells = Fill<T>::kCells;
-  const int blocks = (G + kCells - 1) / kCells;
-  ecsim_fill_kernel<T><<<blocks, 32 * kCells, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      t, v, Bp, valid, L, Islot, G, K, half, coef_a, coef_i);
-  return static_cast<int>(cudaGetLastError());
+// live_list with every valid byte loaded before the first ballot, so that the
+// list waits for one load, not one a 32 slots (0.2975 against 0.2794 ms in the
+// float64 kernel; H100 80GB HBM3 at 700 W, PERF.md §6).  The float32 kernel
+// keeps live_list: untried there.
+__device__ __forceinline__ int live_list_loaded(
+    const unsigned char* __restrict__ valid, long long row, int K, int lane,
+    unsigned short* list) {
+  constexpr int kChunks = kMaxK / 32;
+  bool live[kChunks];
+#pragma unroll
+  for (int q = 0; q < kChunks; ++q) {
+    const int k = 32 * q + lane;
+    live[q] = k < K && valid[row + k];
+  }
+  int n_live = 0;
+#pragma unroll
+  for (int q = 0; q < kChunks; ++q) {
+    if (32 * q >= K) break;
+    const unsigned mask = __ballot_sync(kFullMask, live[q]);
+    if (live[q])
+      list[n_live + __popc(mask & ((1u << lane) - 1u))] = 32 * q + lane;
+    n_live += __popc(mask);
+  }
+  return n_live;
+}
+
+// float64: one cell a block of three warps, warp c forming row
+// component c's products.
+__global__ void __launch_bounds__(32 * Fill<double>::kWarps)
+ecsim_fill_f64_kernel(const double* __restrict__ t,
+                      const double* __restrict__ v,
+                      const double* __restrict__ Bp,
+                      const unsigned char* __restrict__ valid,
+                      double* __restrict__ L, double* __restrict__ Islot,
+                      int K, double half, double coef_a, double coef_i) {
+  __shared__ __align__(16) double
+      tile[Fill<double>::kTile * Fill<double>::kRowStride];
+  __shared__ unsigned short list[kMaxK];
+  __shared__ int n_shared;
+  const int c = threadIdx.x >> 5;
+  const int lane = lane_id();
+  const int g = blockIdx.x;
+  const long long row = static_cast<long long>(g) * K;
+  if (c == 0) {
+    const int n = live_list_loaded(valid, row, K, lane, list);
+    if (lane == 0) n_shared = n;
+  }
+  __syncthreads();
+  f64_products(c, t, v, Bp, list, tile, n_shared, row, g, lane, half,
+               coef_a, coef_i, L, Islot);
+}
+
+// float32: one cell a warp, four cells a block.
+__global__ void __launch_bounds__(32 * Fill<float>::kCells)
+ecsim_fill_kernel(const float* __restrict__ t, const float* __restrict__ v,
+                  const float* __restrict__ Bp,
+                  const unsigned char* __restrict__ valid,
+                  float* __restrict__ L, float* __restrict__ Islot, int G,
+                  int K, float half, float coef_a, float coef_i) {
+  constexpr int kCells = Fill<float>::kCells;
+  __shared__ __align__(16) float
+      tiles[kCells][kTile * Fill<float>::kRowStride];
+  __shared__ unsigned short lists[kCells][kMaxK];
+  const int warp = threadIdx.x >> 5;
+  const int lane = lane_id();
+  const int g = blockIdx.x * kCells + warp;
+  if (g >= G) return;
+  float* tile = tiles[warp];
+  unsigned short* list = lists[warp];
+  const long long row = static_cast<long long>(g) * K;
+  const int n_live = live_list(valid, row, K, lane, list);
+  tf32_products(t, v, Bp, list, tile, n_live, row, g, lane, half, coef_a,
+                coef_i, L, Islot);
 }
 
 }  // namespace
@@ -530,8 +645,12 @@ XPIC_API int xpic_ecsim_fill(const float* t, const float* v, const float* Bp,
                              const unsigned char* valid, float* L,
                              float* Islot, int G, int K, float half,
                              float coef_a, float coef_i, void* stream) {
-  return launch(t, v, Bp, valid, L, Islot, G, K, half, coef_a, coef_i,
-                stream);
+  if (K < 1 || K > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kCells = Fill<float>::kCells;
+  ecsim_fill_kernel<<<(G + kCells - 1) / kCells, 32 * kCells, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      t, v, Bp, valid, L, Islot, G, K, half, coef_a, coef_i);
+  return static_cast<int>(cudaGetLastError());
 }
 
 XPIC_API int xpic_ecsim_fill_f64(const double* t, const double* v,
@@ -540,6 +659,14 @@ XPIC_API int xpic_ecsim_fill_f64(const double* t, const double* v,
                                  double* Islot, int G, int K, double half,
                                  double coef_a, double coef_i,
                                  void* stream) {
-  return launch(t, v, Bp, valid, L, Islot, G, K, half, coef_a, coef_i,
-                stream);
+  if (K < 1 || K > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
+  ecsim_fill_f64_kernel<<<G, 32 * Fill<double>::kWarps, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      t, v, Bp, valid, L, Islot, K, half, coef_a, coef_i);
+  return static_cast<int>(cudaGetLastError());
+}
+
+XPIC_API int xpic_ecsim_fill_f64_info(int* out) {
+  return kernel_info(ecsim_fill_f64_kernel, 32 * Fill<double>::kWarps, 0,
+                     out);
 }

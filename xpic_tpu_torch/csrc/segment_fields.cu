@@ -16,7 +16,8 @@
 // of a [G, K, 3] tensor is read in place.  Outputs E_p, B_p [G, K, 3]
 // contiguous.  One source, two element types: xpic_segment_fields takes
 // float32, xpic_segment_fields_f64 float64 (the float64 path of
-// eccapfim), the same kernel template instantiated for each.
+// eccapfim); both kernels work a cell's items with the same code
+// (work_cell) and differ in how the windows reach shared memory.
 //
 // Bound on the H100: memory, 5.2 KB of windows a cell in float32
 // (10.4 KB in float64) read once beside the moves and the two outputs;
@@ -25,8 +26,8 @@
 // time in float32, and as much in float64 (half the rate, twice the
 // bytes).
 //
-// Design.  One warp per cell: it stages the cell's two windows in shared
-// memory as stored, then works through (slot, segment) items.
+// Design.  One warp a cell: the cell's two windows in shared memory as
+// stored, then (slot, segment) items.
 //
 // * Only the weights that can be nonzero.  S1 is nonzero on 2 window
 //   offsets and S2 at one point on 3, so each contraction of the 6^3
@@ -53,11 +54,25 @@
 //   up in segment order 0..3 with the same FMA chain as a per-slot
 //   loop: the result does not depend on which lane ran which item.
 //
-// One cell a warp, two warps a block; 96 registers in float32.  A warp's
-// shared memory (WarpSmem) is 9.7 KB in float32 and 19.2 KB in float64,
-// so two warps a block stay under the 48 KB of static shared memory in
-// both.  No atomics; FMAs in the element type.  rint rounds half to
-// even, as jnp.round and torch.round do.
+// float32: the warp loads its cell's windows itself (16-byte loads, then
+// __syncwarp), two warps a block, 96 registers, 9.7 KB of shared memory
+// a warp.
+//
+// float64: the windows are twice the bytes, and loaded the float32 way they
+// left the warp waiting: 0.104 of 0.37 ms in builds with parts removed (H100
+// 80GB HBM3 at 700 W, PERF.md §6).  So a persistent block of kRingWarps = 11
+// warps, one an SM, shares kStages = 13 window stages (10.4 KB each, the
+// items' term arrays 8.8 KB a warp: 232,096 bytes of dynamic shared memory),
+// which one TMA bulk copy a window fills ahead of the warps (see "float64"
+// below); 168 registers, no spill, 11 warps an SM (the float32 kernel's 19.2
+// KB a warp in float64 gave 10).  The items and sums are work_cell's: the
+// float64 outputs are, bit for bit, those of the one-warp-a-cell kernel in
+// float64.
+//
+// No atomics; FMAs in the element type.  rint rounds half to even, as
+// jnp.round and torch.round do.
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
@@ -74,16 +89,23 @@ constexpr int kTermStride = kSegments * kTerms + 1;
 constexpr int kSegWarps = 2;    // warps a block
 constexpr int kMoveStride = 9;  // x0, d, s1, s2, s3 (odd: no conflicts)
 
-// One warp's shared memory: its cell's windows and, for the 32 slots in
-// hand, their moves, their (slot, segment) items and the items' terms.
+// What a warp keeps of the 32 slots in hand: their moves, their (slot,
+// segment) items and the items' terms.
+template <typename T>
+struct CellParts {
+  T terms[32 * kTermStride];
+  T moves[32 * kMoveStride];
+  unsigned char items[32 * kSegments];  // slot << 2 | segment
+};
+
+// One warp's shared memory in the float32 kernel: its cell's windows and
+// its parts.
 template <typename T>
 struct __align__(16) WarpSmem {
   using Vec = typename Vec16<T>::type;
   static constexpr int kVec = 16 / sizeof(T);  // elements a Vec
   Vec win[2 * kCellWin / kVec];  // E, then B, as stored
-  T terms[32 * kTermStride];
-  T moves[32 * kMoveStride];
-  unsigned char items[32 * kSegments];  // slot << 2 | segment
+  CellParts<T> parts;
 };
 
 // The splines without branches (both sides computed, one selected): the
@@ -397,30 +419,23 @@ __device__ __forceinline__ int warp_offset(int n, int lane, int* total) {
   return incl - n;
 }
 
+// One cell's slots against its staged windows Es, Bs (one warp): in
+// groups of 32 slots, (1) each lane counts its slot's live segments and
+// the warp lists the (slot, segment) items, (2) the items, 32 at a time,
+// write their raw contractions into the term array, (3) each slot's lane
+// adds its terms up in segment order and writes E_p, B_p.
 template <typename T>
-__global__ void __launch_bounds__(32 * kSegWarps)
-segment_fields_kernel(const T* __restrict__ Eblk,
-                      const T* __restrict__ Bblk,
-                      const T* __restrict__ t0,
-                      const T* __restrict__ tn, T* __restrict__ Eout,
-                      T* __restrict__ Bout, int G, int K, long long ld) {
-  __shared__ WarpSmem<T> smem[kSegWarps];
-  const int g = warp_id();
-  if (g >= G) return;  // uniform across the warp
-  const int lane = lane_id();
-  WarpSmem<T>& sm = smem[threadIdx.x >> 5];
-  stage_cell(Eblk + static_cast<size_t>(g) * kCellWin,
-             Bblk + static_cast<size_t>(g) * kCellWin, sm.win, lane);
-  __syncwarp();
-  const T* Es = reinterpret_cast<const T*>(sm.win);
-  const T* Bs = Es + kCellWin;
-  const T* T0 = t0 + g * ld;
-  const T* Tn = tn + g * ld;
-
+__device__ __forceinline__ void work_cell(const T* __restrict__ Es,
+                                          const T* __restrict__ Bs,
+                                          const T* __restrict__ T0,
+                                          const T* __restrict__ Tn,
+                                          T* __restrict__ Eout,
+                                          T* __restrict__ Bout, int g, int K,
+                                          CellParts<T>& p, int lane) {
   for (int base = 0; base < K; base += 32) {
     // 1. Count each slot's live segments and list them.
     const int k = base + lane;
-    T* mv = sm.moves + lane * kMoveStride;
+    T* mv = p.moves + lane * kMoveStride;
     int live = 0;
     Move<T> m;
     if (k < K) {
@@ -436,23 +451,23 @@ segment_fields_kernel(const T* __restrict__ Eblk,
 #pragma unroll
       for (int seg = 0; seg < kSegments; ++seg)
         if (m.tau(seg + 1) - m.tau(seg) != T(0))
-          sm.items[at++] = static_cast<unsigned char>(lane << 2 | seg);
+          p.items[at++] = static_cast<unsigned char>(lane << 2 | seg);
     }
     __syncwarp();
 
     // 2. The items, 32 at a time: raw contractions into the term array.
     for (int i = lane; i < n_items; i += 32) {
-      const int v = sm.items[i] >> 2, seg = sm.items[i] & 3;
-      const Move<T> mi = Move<T>::load(sm.moves + v * kMoveStride);
+      const int v = p.items[i] >> 2, seg = p.items[i] & 3;
+      const Move<T> mi = Move<T>::load(p.moves + v * kMoveStride);
       segment_terms(Es, Bs, mi, mi.tau(seg), mi.tau(seg + 1),
-                    sm.terms + v * kTermStride + seg * kTerms);
+                    p.terms + v * kTermStride + seg * kTerms);
     }
     __syncwarp();
 
     // 3. Each slot's sum over its live segments, in segment order.
     if (k < K) {
       m = Move<T>::load(mv);
-      const T* tv = sm.terms + lane * kTermStride;
+      const T* tv = p.terms + lane * kTermStride;
       T E[3] = {T(0), T(0), T(0)}, B[3] = {T(0), T(0), T(0)};
       T a = T(0);
 #pragma unroll
@@ -482,6 +497,177 @@ segment_fields_kernel(const T* __restrict__ Eblk,
 }
 
 template <typename T>
+__global__ void __launch_bounds__(32 * kSegWarps)
+segment_fields_kernel(const T* __restrict__ Eblk,
+                      const T* __restrict__ Bblk,
+                      const T* __restrict__ t0,
+                      const T* __restrict__ tn, T* __restrict__ Eout,
+                      T* __restrict__ Bout, int G, int K, long long ld) {
+  __shared__ WarpSmem<T> smem[kSegWarps];
+  const int g = warp_id();
+  if (g >= G) return;  // uniform across the warp
+  const int lane = lane_id();
+  WarpSmem<T>& sm = smem[threadIdx.x >> 5];
+  stage_cell(Eblk + static_cast<size_t>(g) * kCellWin,
+             Bblk + static_cast<size_t>(g) * kCellWin, sm.win, lane);
+  __syncwarp();
+  const T* Es = reinterpret_cast<const T*>(sm.win);
+  work_cell(Es, Es + kCellWin, t0 + g * ld, tn + g * ld, Eout, Bout, g, K,
+            sm.parts, lane);
+}
+
+// ---- float64: a persistent ring of window stages ---------------------
+//
+// kRingWarps warps a block share kStages = kRingWarps + 2 stages, each one
+// cell's two windows.  The block's cells are g = blockIdx.x + t gridDim.x for
+// tickets t = 0, 1, ...; ticket t's windows go into stage t mod kStages.  A
+// warp takes the next ticket (a shared atomic), waits for its stage, works the
+// cell's items, and then loads ticket t + kStages into the stage it frees,
+// with one TMA bulk copy a window (cp.async.bulk completing on the stage's
+// mbarrier): the loads of the next two cells run while the warps work theirs
+// (one spare stage gave 0.2964 ms, two 0.2935, at K' = 32 of 96; H100 80GB
+// HBM3 at 700 W, PERF.md §6).  A warp waits for filled[s] == t before the
+// stage's mbarrier, so that it never tests the parity of a phase a stage has
+// not begun.
+constexpr int kRingWarps = 11;
+constexpr int kStages = kRingWarps + 2;
+constexpr unsigned kWinBytes = kCellWin * sizeof(double);  // 5,184
+
+struct __align__(16) RingSmem {
+  double2 win[kStages][kCellWin];  // per stage E, then B, as stored
+  CellParts<double> parts[kRingWarps];
+  unsigned long long full[kStages];  // mbarriers: the stage's bytes landed
+  int filled[kStages];  // the ticket whose windows the stage holds
+  int next_ticket;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Load ticket t's cell g into stage s (one thread): the ticket first, so
+// that its warp waits on the stage's phase of this load.
+__device__ __forceinline__ void load_stage(RingSmem& sm, int s, int t,
+                                           const double* Eg,
+                                           const double* Bg) {
+  *reinterpret_cast<volatile int*>(&sm.filled[s]) = t;
+  const uint32_t bar = smem_addr(&sm.full[s]);
+  const uint32_t dst = smem_addr(sm.win[s]);
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+      :: "r"(bar), "r"(2 * kWinBytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(dst), "l"(Eg), "r"(kWinBytes), "r"(bar) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(dst + kWinBytes), "l"(Bg), "r"(kWinBytes), "r"(bar)
+      : "memory");
+}
+
+// Wait until stage s holds ticket t's windows.
+__device__ __forceinline__ void wait_stage(RingSmem& sm, int s, int t) {
+  while (*reinterpret_cast<volatile int*>(&sm.filled[s]) != t) {
+  }
+  const uint32_t bar = smem_addr(&sm.full[s]);
+  const uint32_t parity = (t / kStages) & 1;
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__global__ void __launch_bounds__(32 * kRingWarps, 1)
+segment_fields_f64_kernel(const double* __restrict__ Eblk,
+                          const double* __restrict__ Bblk,
+                          const double* __restrict__ t0,
+                          const double* __restrict__ tn,
+                          double* __restrict__ Eout,
+                          double* __restrict__ Bout, int G, int K,
+                          long long ld) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  RingSmem& sm = *reinterpret_cast<RingSmem*>(dyn);
+  const int lane = lane_id();
+  CellParts<double>& parts = sm.parts[threadIdx.x >> 5];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                   :: "r"(smem_addr(&sm.full[s])), "r"(1) : "memory");
+      sm.filled[s] = -1;
+    }
+    sm.next_ticket = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int s = 0; s < kStages; ++s) {
+      const long long g = blockIdx.x + static_cast<long long>(s) * gridDim.x;
+      if (g >= G) break;
+      load_stage(sm, s, s, Eblk + g * kCellWin, Bblk + g * kCellWin);
+    }
+
+  for (;;) {
+    int t = 0;
+    if (lane == 0) t = atomicAdd(&sm.next_ticket, 1);
+    t = __shfl_sync(kFullMask, t, 0);
+    const long long g = blockIdx.x + static_cast<long long>(t) * gridDim.x;
+    if (g >= G) break;  // uniform across the warp
+    const int s = t % kStages;
+    wait_stage(sm, s, t);
+    const double* Es = reinterpret_cast<const double*>(sm.win[s]);
+    work_cell(Es, Es + kCellWin, t0 + g * ld, tn + g * ld, Eout, Bout,
+              static_cast<int>(g), K, parts, lane);
+    __syncwarp();  // every lane is done with the stage
+    const long long g2 = g + static_cast<long long>(kStages) * gridDim.x;
+    if (lane == 0 && g2 < G) {
+      // the stage's reads come before the bulk copy's writes
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      load_stage(sm, s, t + kStages, Eblk + g2 * kCellWin,
+                 Bblk + g2 * kCellWin);
+    }
+  }
+}
+
+constexpr int kRingBytes = sizeof(RingSmem);  // past the static 48 KB
+
+// The float64 kernel's dynamic shared memory, allowed on this device.
+cudaError_t allow_ring_bytes() {
+  return cudaFuncSetAttribute(segment_fields_f64_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              kRingBytes);
+}
+
+int launch_f64(const double* Eblk, const double* Bblk, const double* t0,
+               const double* tn, double* Eout, double* Bout, int G, int K,
+               long long ld, void* stream) {
+  // Blocks the card holds at once: per SM times SMs, at most one a
+  // kRingWarps cells.
+  int dev = 0, per_sm = 0, sms = 0;
+  cudaError_t err = allow_ring_bytes();
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, segment_fields_f64_kernel, 32 * kRingWarps, kRingBytes);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int work = (G + kRingWarps - 1) / kRingWarps;
+  const int resident = per_sm * sms;
+  const int blocks = work < resident ? work : resident;
+  if (blocks < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  segment_fields_f64_kernel<<<blocks, 32 * kRingWarps, kRingBytes,
+                              static_cast<cudaStream_t>(stream)>>>(
+      Eblk, Bblk, t0, tn, Eout, Bout, G, K, ld);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
 int launch(const T* Eblk, const T* Bblk, const T* t0, const T* tn, T* Eout,
            T* Bout, int G, int K, long long ld, void* stream) {
   segment_fields_kernel<T><<<(G + kSegWarps - 1) / kSegWarps,
@@ -504,5 +690,12 @@ XPIC_API int xpic_segment_fields_f64(const double* Eblk, const double* Bblk,
                                      const double* t0, const double* tn,
                                      double* Eout, double* Bout, int G,
                                      int K, long long ld, void* stream) {
-  return launch(Eblk, Bblk, t0, tn, Eout, Bout, G, K, ld, stream);
+  return launch_f64(Eblk, Bblk, t0, tn, Eout, Bout, G, K, ld, stream);
+}
+
+XPIC_API int xpic_segment_fields_f64_info(int* out) {
+  const cudaError_t err = allow_ring_bytes();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return kernel_info(segment_fields_f64_kernel, 32 * kRingWarps, kRingBytes,
+                     out);
 }

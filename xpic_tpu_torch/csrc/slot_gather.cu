@@ -75,3 +75,8 @@ XPIC_API int xpic_slot_gather_f64(const double* t, const double* Fg,
                                   double* out, int G, int K, void* stream) {
   return launch(t, Fg, out, G, K, stream);
 }
+
+XPIC_API int xpic_slot_gather_f64_info(int* out) {
+  return kernel_info(slot_gather_kernel<double>, 32 * kWarpsPerBlock, 0,
+                     out);
+}

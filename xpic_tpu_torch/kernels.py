@@ -15,10 +15,13 @@ its path went through the kernel.
 
 The kernels take float32.  The four that the float64 path of the schemes
 runs (``F64_KERNELS``) have a second entry point ``xpic_<name>_f64``,
-the same kernel template instantiated for float64, with double scalars;
-:func:`entry` picks the entry point from a tensor's dtype, and the
-launches of each are counted under its own name (``cheb_step_f64``, ...),
-so that a run shows which dtype its path took.
+with double scalars: the kernel template instantiated for float64
+(``cheb_step``, ``slot_gather``) or a float64 kernel of its own
+(``segment_fields``, ``ecsim_fill``); :func:`entry` picks the entry
+point from a tensor's dtype, and the launches of each are counted under
+its own name (``cheb_step_f64``, ...), so that a run shows which dtype
+its path took.  :func:`kernel_info` reads what each float64 kernel takes
+on the card (registers, shared memory, resident warps).
 """
 
 from __future__ import annotations
@@ -72,6 +75,9 @@ SIGNATURES = {
 # The kernels with a float64 entry point, and its suffix.
 F64_KERNELS = ("cheb_step", "slot_gather", "segment_fields", "ecsim_fill")
 F64 = "_f64"
+# What kernel_info reports, in the order of the C side's out[5].
+INFO_KEYS = ("registers", "smem_bytes", "threads", "warps_per_sm",
+             "local_bytes")
 
 LAUNCHES = {name: 0 for name in SIGNATURES}
 BUILD_LOG = ""
@@ -155,8 +161,24 @@ def load():
         fn = getattr(lib, "xpic_" + name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
+    for name in F64_KERNELS:
+        fn = getattr(lib, f"xpic_{name}{F64}_info")
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
     _lib = lib
     return lib
+
+
+def kernel_info(name: str) -> dict:
+    """What the float64 kernel ``name`` (a key of ``F64_KERNELS`` with
+    ``F64``) takes on the current CUDA device, by the runtime's
+    attributes and occupancy at its launch's block and shared memory:
+    ``INFO_KEYS``."""
+    out = (ctypes.c_int * len(INFO_KEYS))()
+    err = getattr(load(), f"xpic_{name}_info")(out)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel_info failed with error {err}")
+    return dict(zip(INFO_KEYS, out))
 
 
 def entry(name: str, T) -> str:
