@@ -115,7 +115,26 @@ Phases:
 18. the configs and sizes of phases 7, 9, 11 and 14 in float64, card
     against CPU: tables within 1e-9 of each column's scale, equal
     iterations of every solver and equal counts step by step, step-0
-    dumps bitwise.
+    dumps bitwise;
+19. the ECSIM path over two ranks that share the card (``"Mesh": 2``,
+    one 16-plane z slab each; NCCL refuses two ranks on one device, so
+    the ranks join with gloo, staged through pinned host buffers, and
+    the phase first shows NCCL's refusal; two ranks on one card give no
+    scaling figure): in the phase's own two ranks, K1's slab form
+    (``cheb_sweep``, ``cheb_sweep_f64``: one launch a sweep, 11
+    exchanges an apply) on each rank's slab of phase 3's 32^3 field
+    within 1e-5 (float32) and 1e-12 (float64) of its slab twin and
+    bitwise equal to the one-launch K1 on the whole field, timed (a
+    sweep and an apply); K3's z pass with ghost planes bitwise against
+    its twin on phase 3's drifted state; 1 + 10 fused float32 steps of
+    phase 4's state (KSP within one of ``ITERS`` a step, step ms, bytes
+    and exchange ms a step a rank); then ``runtime.cli.main`` with
+    ``"Mesh": 2`` from this process (it starts the ranks; each writes
+    its ``--report``) on phase 6's config, float32 ``free`` (tables
+    within 1e-4 of phase 6's one-rank run, the energy identity within
+    1e-4, no particle dropped), float32 ``blocks`` (against a one-rank
+    ``blocks`` run), and float64 at 16^3 x 20 ppc (tables within 1e-9,
+    equal iterations): every rank launches each kernel of its route.
 
 Phase 3 also holds the segment-field kernel against its twin on the
 drifted 32^3 x 50 ppc state (K = 96) with moves of up to 0.9 cell a
@@ -138,7 +157,10 @@ the four float64 entry points as rows of their own (``cheb_step_f64``,
 ...), with its launches on the fused path, the ECSIM config-driven path,
 the eccapfim path, the two ecsimcorr runs, the calibration path, the
 ``basic`` path (``launches_basic``) and each float64 path of phase 17
-(``launches_f64_<path>``), its error against its twin, its times
+(``launches_f64_<path>``), its launches over phase 19's mesh runs,
+both ranks (``launches_mesh2``), and the slab form of K1 as rows of its
+own (``cheb_sweep``, ``cheb_sweep_f64``: a sweep's times, an apply's in
+``apply_ms``), its error against its twin, its times
 (``ms``, ``call_ms``), its twin's and its bound; the float64 rows also
 ``registers``, ``smem_bytes`` (a block), ``threads``, ``warps_per_sm``
 and ``local_bytes``.  The ``prims``
@@ -225,6 +247,9 @@ KERNELS = {
                    "xpic_tpu/ops/pallas_ecsim.py:72"),
     "prims": ("xpic_tpu_torch/csrc/prims.cu",
               "benchmarks/profile_pallas_prims.py:27"),
+    # K1's slab form, one sweep a launch (phase 19)
+    "cheb_sweep": ("xpic_tpu_torch/csrc/cheb_step.cu",
+                   "xpic_tpu/ops/pallas_stencil.py:120"),
 }
 # The kernels each path runs.
 ECCAPFIM_KERNELS = ("cheb_step", "rebin_extract", "rebin_place",
@@ -499,10 +524,12 @@ def main() -> None:
 
     # -- 6. the config-driven path on the card -----------------------------
     os.environ["XPIC_X64"] = "0"
-    with tempfile.TemporaryDirectory(prefix="xpic_smoke_") as work:
-        out, sim, step_times, cli_launches = run_cli(
-            work, SIDE, PPC, CLI_STEPS, "cuda:0")
-        check_cli_run(out, sim, cli_launches, name, card, step_times)
+    # Phase 19 holds its two ranks' run against this run's tables.
+    keep = tempfile.TemporaryDirectory(prefix="xpic_smoke_")
+    cli_out, sim, step_times, cli_launches = run_cli(
+        keep.name, SIDE, PPC, CLI_STEPS, "cuda:0")
+    check_cli_run(cli_out, sim, cli_launches, name, card, step_times)
+    cli_ksp = list(sim.ksp_history)
 
     # -- 7. the config-driven path, card against CPU -------------------------
     with tempfile.TemporaryDirectory(prefix="xpic_smoke_") as work:
@@ -679,6 +706,13 @@ def main() -> None:
     # -- 18. the float64 paths, card against CPU ------------------------------
     f64_card_vs_cpu(card)
 
+    # -- 19. the ECSIM path over two ranks sharing the card ----------------
+    mesh_launches, mesh_rows = mesh_path(name, card, cli_out, cli_ksp)
+    keep.cleanup()
+    report.update((k, v) for k, v in mesh_rows.items()
+                  if k in kernels.SIGNATURES)
+    report["rebin_place"]["zghost"] = mesh_rows["rebin_place_zghost"]
+
     if "--profile" in sys.argv[1:]:
         profile_paths(name, card, dev, lambda: ecsim_multi_step(
             E, B, B0, sp, geom, slots, n_steps=2, **KW))
@@ -693,8 +727,9 @@ def main() -> None:
                "cheb_step_f64": f64_launches["cli"],
                "slot_gather_f64": f64_launches["cli"],
                "ecsim_fill_f64": f64_launches["cli"],
-               "segment_fields_f64": f64_launches["eccapfim"]}.get(
-                   kname, launches)
+               "segment_fields_f64": f64_launches["eccapfim"],
+               "cheb_sweep": mesh_launches,
+               "cheb_sweep_f64": mesh_launches}.get(kname, launches)
         row = dict(name=kname, route="cuda", source=src, replaces=repl,
                    launches=own[kname], launches_fused=launches[kname],
                    launches_cli=cli_launches[kname],
@@ -702,7 +737,9 @@ def main() -> None:
                    launches_ecsimcorr_free=corr_launches["free"][kname],
                    launches_ecsimcorr_blocks=corr_launches["blocks"][kname],
                    launches_probe=cal_launches[kname],
-                   launches_basic=basic_launches[kname], library_ms=None,
+                   launches_basic=basic_launches[kname],
+                   launches_mesh2=mesh_launches.get(kname, 0),
+                   library_ms=None,
                    **{f"launches_f64_{path}": n[kname]
                       for path, n in f64_launches.items()})
         row.update(report[kname])
@@ -2168,6 +2205,468 @@ def cell_multisets(sp, geom):
     cell = (c[:, 2] * geom.ny + c[:, 1]) * geom.nx + c[:, 0]
     order = np.lexsort((r[:, 2], r[:, 1], r[:, 0], cell))
     return cell[order], np.concatenate([r, p], axis=1)[order]
+
+
+# -- phase 19: the ECSIM path over two ranks sharing the card ---------------
+# Two ranks, one z slab each (16 x 32 x 32 cells at phase 6's size).
+# They share the one card, so this phase gives no scaling figure.
+MESH = 2
+MESH_STEPS = 10  # fused steps on phase 4's state, after one warm-up step
+MESH_F64_SIDE, MESH_F64_PPC, MESH_F64_STEPS = 16, 20, 2
+# Every rank's kernels on each mesh path; the float32 routes' and the
+# float64 route's (blocks, the global sort: no K2, K3 or K4).
+MESH_KERNELS = {
+    "free": ("cheb_sweep", "rebin_extract", "rebin_place", "mass_apply",
+             "slot_gather"),
+    "blocks": ("cheb_sweep", "rebin_extract", "rebin_place", "ecsim_fill",
+               "slot_gather"),
+    "f64": ("cheb_sweep_f64", "slot_gather_f64", "ecsim_fill_f64"),
+}
+# Bytes an element of one middle sweep of the slab form reads and writes
+# once (d in, x and r in and out, d out), in elements of the field.
+SWEEP_ACCESSES = 6
+
+
+def nccl_probe():
+    """Two processes ask NCCL for a group of two ranks on cuda:0 and
+    all-reduce one number.  Returns what NCCL said (the first error
+    line), or that it passed."""
+    import subprocess
+
+    from xpic_tpu_torch.runtime.distributed import free_port
+
+    code = (
+        "import sys, torch, torch.distributed as dist\n"
+        "r = int(sys.argv[1])\n"
+        "torch.cuda.set_device(0)\n"
+        "dist.init_process_group('nccl', init_method=sys.argv[2], rank=r,"
+        " world_size=2)\n"
+        "x = torch.ones(1, device='cuda:0')\n"
+        "dist.all_reduce(x)\n"
+        "torch.cuda.synchronize()\n"
+        "print('all_reduce', float(x))\n"
+        "dist.destroy_process_group()\n")
+    init = f"tcp://127.0.0.1:{free_port()}"
+    env = dict(os.environ, NCCL_DEBUG="WARN")
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), init],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=env)
+             for r in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=90)[0])
+        except subprocess.TimeoutExpired:
+            p.kill()
+            outs.append(p.communicate()[0] + "\n(timed out after 90 s)")
+    lines = [ln.strip() for out in outs for ln in out.splitlines()
+             if "rror" in ln or "uplicate" in ln or "all_reduce" in ln
+             or "timed out" in ln]
+    rcs = [p.returncode for p in procs]
+    return rcs, lines[:4]
+
+
+def _slab_sweep_fn(rhs_slab, shift, sgeom, k):
+    """One launch of sweep ``k`` of the slab form on ghost-padded copies
+    of ``rhs_slab`` (the kernel alone, for its time)."""
+    from xpic_tpu_torch import kernels
+    from xpic_tpu_torch.ops.stencil_kernel import _beta_lam
+
+    n = sgeom.nz
+    pad = (3, n + 2, sgeom.ny, sgeom.nx)
+    rhs_p = torch.zeros(pad, dtype=rhs_slab.dtype, device=rhs_slab.device)
+    rhs_p[:, 1:n + 1] = rhs_slab
+    d_in = rhs_p.clone()
+    d_out = torch.zeros_like(rhs_p)
+    x = torch.zeros_like(rhs_slab)
+    r = rhs_slab.clone()
+    beta, beta_lam = _beta_lam(sgeom, sgeom.dt)
+    name = kernels.entry("cheb_sweep", rhs_slab)
+
+    def sweep():
+        kernels.call(name, rhs_p.data_ptr(), shift.data_ptr(), x.data_ptr(),
+                     r.data_ptr(), d_in.data_ptr(), d_out.data_ptr(),
+                     sgeom.nx, sgeom.ny, n, 1, 1, 1, 1, 1.0 / sgeom.dx,
+                     1.0 / sgeom.dy, 1.0 / sgeom.dz, beta, beta_lam, k, 12,
+                     device=rhs_slab.device)
+    return sweep
+
+
+def _fixed_ms(fn, reps):
+    """``reps`` calls between two CUDA events, over ``reps``, after one
+    warm-up: the same number of calls on every rank (the calls exchange
+    planes)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _mesh_cheb(geom, mesh, dtype):
+    """K1's slab form on this rank's 16 planes of phase 3's 32^3 field
+    against its slab twin and the one-launch K1 on the whole field."""
+    from xpic_tpu_torch import kernels
+    from xpic_tpu_torch.benchmarks import call_ms, device_ms
+    from xpic_tpu_torch.ops.stencil_kernel import (
+        cheb_matM_inv,
+        cheb_matM_inv_slab,
+        cheb_matM_inv_slab_plain,
+    )
+
+    dev = torch.device("cuda", 0)
+    sgeom = geom.slab(mesh)
+    rng = np.random.default_rng(2)
+    rhs = torch.tensor(rng.standard_normal((3,) + geom.shape),
+                       dtype=torch.float32, device=dev).to(dtype)
+    shift = torch.tensor(0.37, dtype=torch.float32, device=dev).to(dtype)
+    n = sgeom.nz
+    rhs_s = rhs[:, mesh.z0:mesh.z0 + n].contiguous()
+    cheb = dict(degree=12, dt=geom.dt)
+    name = kernels.entry("cheb_sweep", rhs)
+    before = kernels.LAUNCHES[name]
+    x_k = cheb_matM_inv_slab(rhs_s, shift, geom=sgeom, **cheb)
+    sweeps = kernels.LAUNCHES[name] - before
+    x_p = cheb_matM_inv_slab_plain(rhs_s, shift, geom=sgeom, **cheb)
+    x_one = cheb_matM_inv(rhs, shift, geom=geom, **cheb)[:, mesh.z0:
+                                                           mesh.z0 + n]
+    torch.cuda.synchronize()
+    err = float((x_k - x_p).abs().max())
+    sweep = _slab_sweep_fn(rhs_s, shift, sgeom, 5)
+    elem = 3 * n * geom.ny * geom.nx
+    sweep_bytes = SWEEP_ACCESSES * elem * rhs.element_size()
+    mesh.reset_counts()
+    apply_ms = _fixed_ms(lambda: cheb_matM_inv_slab(rhs_s, shift,
+                                                    geom=sgeom, **cheb), 10)
+    exch = mesh.calls["cheb_ghosts"] / 11
+    apply_call = call_ms(lambda: cheb_matM_inv_slab(rhs_s, shift,
+                                                    geom=sgeom, **cheb),
+                         torch.device("cuda", 0), reps=10)
+    plain_apply = _fixed_ms(lambda: cheb_matM_inv_slab_plain(
+        rhs_s, shift, geom=sgeom, **cheb), 5)
+    return dict(
+        max_abs_err=err, rel_err=err / float(x_p.abs().max()),
+        bitwise_one_launch=bool(torch.equal(x_k, x_one)),
+        launches_an_apply=sweeps,
+        ms=device_ms(sweep, dev), call_ms=call_ms(sweep, dev),
+        apply_ms=apply_ms, apply_call_ms=apply_call,
+        plain_ms=plain_apply / 12, plain_apply_ms=plain_apply,
+        bound_ms=sweep_bytes / HBM_BPS * 1e3, bound_by="bytes",
+        apply_bound_ms=12 * sweep_bytes / HBM_BPS * 1e3,
+        exchanges_an_apply=exch, library_ms=None)
+
+
+def _mesh_k3(geom, mesh):
+    """K3's z pass with ghost planes on this rank's slab of phase 3's
+    drifted 32^3 x 50 ppc state (K = 80), bitwise against its twin on
+    the same padded buffers; the whole slab exchange bitwise against
+    its twins."""
+    from xpic_tpu_torch.benchmarks import call_ms, device_ms
+    from xpic_tpu_torch.convert import state_from_numpy
+    from xpic_tpu_torch.ops import neighbor_rebin as NR
+    from xpic_tpu_torch.ops.binning import BinnedState, bin_state, \
+        drift_state
+
+    dev = torch.device("cuda", 0)
+    sgeom = geom.slab(mesh)
+    *_, r, p, alive = bench_state(geom, PPC, VTH, seed=1)
+    _, _, _, sp = state_from_numpy(np.zeros(1), np.zeros(1), np.zeros(1),
+                                   r, p, alive, device=dev,
+                                   dtype=torch.float32)
+    st = drift_state(bin_state(sp, geom, 80), geom)
+    G = sgeom.n_cells
+    rows = slice(mesh.rank * G, (mesh.rank + 1) * G)
+    st = BinnedState(r=st.r[rows], p=st.p[rows], valid=st.valid[rows])
+    _, _, buf, _ = NR.partition_movers(st, sgeom)
+    proxy = NR.slab_z_proxy(buf, sgeom)
+    out, up, dn = NR.rebin_extract(proxy, sgeom, 2)
+    up_p, dn_p = NR.slab_z_ghosts(up, dn, sgeom)
+    k = NR.rebin_place(out, up_p, dn_p, sgeom, 2, True)
+    pl = NR.place_plain(out, up_p, dn_p, sgeom, 2, True)
+    s_k, l_k = NR.rebin_neighbor(st, sgeom)
+    s_p, l_p = NR.rebin_neighbor(st, sgeom, plain=True)
+    torch.cuda.synchronize()
+    whole = (torch.equal(s_k.r, s_p.r) and torch.equal(s_k.p, s_p.p)
+             and torch.equal(s_k.valid, s_p.valid)
+             and torch.equal(l_k, l_p))
+    pass_bytes = 4 * (2 * out.numel() + up.numel() + dn.numel())
+    return dict(
+        bitwise=bool(torch.equal(k, pl)), exchange_bitwise=bool(whole),
+        arrivals=int(up_p[:sgeom.nx * sgeom.ny, 6].sum()
+                     + dn_p[-sgeom.nx * sgeom.ny:, 6].sum()),
+        ms=device_ms(lambda: NR.rebin_place(out, up_p, dn_p, sgeom, 2, True),
+                     dev),
+        call_ms=call_ms(lambda: NR.rebin_place(out, up_p, dn_p, sgeom, 2,
+                                               True), dev),
+        plain_ms=device_ms(lambda: NR.place_plain(out, up_p, dn_p, sgeom, 2,
+                                                  True), dev),
+        bound_ms=pass_bytes / HBM_BPS * 1e3)
+
+
+def _mesh_fused(geom, mesh):
+    """1 + MESH_STEPS fused float32 steps of phase 4's state on this
+    rank's slab: iterations, step ms, launches, the mesh's traffic."""
+    from xpic_tpu_torch import kernels
+    from xpic_tpu_torch.convert import split_state, state_from_numpy
+    from xpic_tpu_torch.parallel.step import ecsim_multi_step
+
+    dev = torch.device("cuda", 0)
+    sgeom = geom.slab(mesh)
+    E, B, B0, r, p, alive = bench_state(geom, PPC, VTH)
+    part = split_state(mesh.world, fields=[E, B, B0], flat=(r, p, alive),
+                       geom=geom, dtype=torch.float32)[mesh.rank]
+    E, B, B0, sp = state_from_numpy(*part["fields"], *part["flat"],
+                                    device=dev, dtype=torch.float32)
+    slots = max(8, int(PPC * 1.6) // 8 * 8)
+    ecsim_multi_step(E, B, B0, sp, sgeom, slots, n_steps=1, **KW)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    mesh.reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    E1, B1, sp1, iters = ecsim_multi_step(E, B, B0, sp, sgeom, slots,
+                                          n_steps=MESH_STEPS, **KW)
+    end.record()
+    end.synchronize()
+    return dict(
+        iters=iters.tolist(), step_ms=start.elapsed_time(end) / MESH_STEPS,
+        launches={k: v for k, v in kernels.LAUNCHES.items() if v},
+        bytes_step=mesh.bytes_sent / MESH_STEPS,
+        exchange_ms_step=mesh.seconds * 1e3 / MESH_STEPS,
+        calls_step={k: v / MESH_STEPS for k, v in mesh.calls.items()},
+        finite=bool(torch.isfinite(E1).all() and torch.isfinite(B1).all()),
+        particles=int(sp1.alive.sum()))
+
+
+def _mesh_rank(rank, init, work):
+    """One rank of phase 19's own ranks: the kernel checks and the fused
+    run; what it finds goes to ``work/rank<r>.json``."""
+    from xpic_tpu_torch import kernels
+    from xpic_tpu_torch.config import Geometry
+    from xpic_tpu_torch.parallel.mesh import make_mesh
+    from xpic_tpu_torch.runtime import distributed
+
+    info = distributed.join(init, rank, MESH)
+    try:
+        kernels.load()
+        geom = Geometry(dx=0.5, dy=0.5, dz=0.5, dt=1.5, nx=SIDE, ny=SIDE,
+                        nz=SIDE, nt=1)
+        mesh = make_mesh(MESH, SIDE)
+        res = {"rank": rank, "join": info.describe(),
+               "backend": info.backend, "shared_card": info.shared_card,
+               "cheb_sweep": _mesh_cheb(geom, mesh, torch.float32),
+               "cheb_sweep_f64": _mesh_cheb(geom, mesh, torch.float64),
+               "k3": _mesh_k3(geom, mesh), "fused": _mesh_fused(geom, mesh)}
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as fh:
+            json.dump(res, fh)
+    finally:
+        distributed.leave()
+
+
+def run_mesh_cli(work, side, ppc, steps, doc=None):
+    """``runtime.cli.main`` on the config with ``"Mesh": 2`` from this
+    one process: it starts the two ranks, each on cuda:0, and each writes
+    its ``--report``.  Returns the output directory and the reports."""
+    from xpic_tpu_torch.commands import particles_load
+    from xpic_tpu_torch.runtime import cli
+
+    os.makedirs(work, exist_ok=True)
+    out = os.path.join(work, "out")
+    cfg = os.path.join(work, "cfg.json")
+    with open(cfg, "w") as fh:
+        json.dump(dict((doc or cli_config)(out, side, ppc, steps),
+                       Mesh=MESH), fh)
+    particles_load.seed(5489)
+    report = os.path.join(work, "report.json")
+    rc = cli.main([cfg, "--quiet", "--report", report])
+    check(rc == 0, f"cli.main returned {rc}")
+    reps = []
+    for r in range(MESH):
+        with open(f"{report}.rank{r}") as fh:
+            reps.append(json.load(fh))
+    return out, reps
+
+
+def _mesh_tables(one, two, side, tol, label):
+    from xpic_tpu_torch.diagnostics.compare import TABLES, table_errors
+
+    worst = {}
+    for table in TABLES:
+        errs = table_errors(table, one, two, n_cells=side ** 3)
+        worst[table] = max(errs.items(), key=lambda kv: kv[1])
+    log(f"[19 mesh] {label}: 2 ranks against 1, worst column per table "
+        f"{worst} (tol {tol})")
+    check(all(e <= tol for _, e in worst.values()),
+          f"{label}: the 2-rank tables differ from the one-rank run's")
+
+
+def _mesh_launch_gate(route, reps, label):
+    for rep in reps:
+        got = rep["launches"]
+        check(all(got.get(k, 0) > 0 for k in MESH_KERNELS[route]),
+              f"{label}: rank {rep['rank']} launched {got}, not every one "
+              f"of {MESH_KERNELS[route]}")
+
+
+def mesh_path(name, card, cli_one_out, cli_one_ksp):
+    """Phase 19: the ECSIM path over two ranks that share the card.
+    Returns the kernels' launches on the mesh paths (both ranks, every
+    run) and the rows of K1's slab form."""
+    import torch.multiprocessing as mp
+
+    from xpic_tpu_torch.diagnostics.compare import read_table
+    from xpic_tpu_torch.runtime.distributed import free_port
+
+    rcs, said = nccl_probe()
+    log(f"[19 mesh] NCCL, two ranks on cuda:0: exit codes {rcs}, "
+        f"{said or 'no error printed'}")
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory(prefix="xpic_smoke_") as work:
+        t0 = time.perf_counter()
+        mp.spawn(_mesh_rank, args=(f"tcp://127.0.0.1:{free_port()}", work),
+                 nprocs=MESH, join=True)
+        ranks = []
+        for r in range(MESH):
+            with open(os.path.join(work, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+        log(f"[19 mesh] two ranks' kernel checks and fused run in "
+            f"{time.perf_counter() - t0:.1f} s: "
+            + "; ".join(r["join"] for r in ranks))
+    for r in ranks:
+        for kname, tol in (("cheb_sweep", CHEB_TOL),
+                           ("cheb_sweep_f64", F64_TOL)):
+            row = r[kname]
+            log(f"[19 mesh] rank {r['rank']} {kname}: 16-plane slab of the "
+                f"32^3 field, max|d|/max|x| {row['rel_err']:.3e} against "
+                f"the slab twin (tol {tol}), bitwise the one-launch K1: "
+                f"{row['bitwise_one_launch']}, {row['launches_an_apply']} "
+                f"launches and {row['exchanges_an_apply']:.0f} exchanges an "
+                f"apply; a sweep {row['ms']:.4f} ms (call "
+                f"{row['call_ms']:.4f}), bound {row['bound_ms']:.4f}; an "
+                f"apply {row['apply_ms']:.4f} ms (call "
+                f"{row['apply_call_ms']:.4f}), bound "
+                f"{row['apply_bound_ms']:.4f}, twin "
+                f"{row['plain_apply_ms']:.4f} | {card}")
+            check(row["rel_err"] <= tol, f"{kname} differs from its twin")
+            check(row["bitwise_one_launch"],
+                  f"{kname} differs from the one-launch K1")
+            check(row["launches_an_apply"] == 12,
+                  f"{kname}: {row['launches_an_apply']} launches an apply")
+        k3 = r["k3"]
+        log(f"[19 mesh] rank {r['rank']} rebin_place z pass with ghost "
+            f"planes: bitwise {k3['bitwise']} ({k3['arrivals']} movers "
+            f"across the faces), whole slab exchange bitwise its twins "
+            f"{k3['exchange_bitwise']}; {k3['ms']:.4f} ms (call "
+            f"{k3['call_ms']:.4f}) vs twin {k3['plain_ms']:.4f}, bound "
+            f"{k3['bound_ms']:.4f} | {card}")
+        check(k3["bitwise"] and k3["exchange_bitwise"] and k3["arrivals"],
+              "K3 with ghost planes differs from its twin")
+        f = r["fused"]
+        log(f"[19 mesh] rank {r['rank']} fused {MESH_STEPS} steps of phase "
+            f"4's state on a 16 x 32 x 32 slab: KSP {f['iters']} (one rank "
+            f"{ITERS['fused']}), step_ms {f['step_ms']:.3f}, bytes a step "
+            f"{f['bytes_step']:.0f}, exchange ms a step "
+            f"{f['exchange_ms_step']:.3f}, collectives a step "
+            f"{f['calls_step']}, launches {f['launches']} | {card}")
+        check(f["finite"], "the 2-rank fused run diverged")
+        check(all(abs(a - b) <= 1 for a, b in zip(f["iters"],
+                                                   ITERS["fused"])),
+              f"fused 2-rank KSP {f['iters']} vs {ITERS['fused']}")
+        _mesh_launch_gate("free", [dict(f, rank=r["rank"])], "fused")
+        add(f["launches"])
+    check(ranks[0]["fused"]["iters"] == ranks[1]["fused"]["iters"],
+          "the two ranks took other iteration counts")
+    log(f"[19 mesh] ranks share a card: {ranks[0]['shared_card']}, backend "
+        f"{ranks[0]['backend']} (NCCL refuses two ranks on one device): no "
+        f"scaling figure")
+
+    with tempfile.TemporaryDirectory(prefix="xpic_smoke_") as work:
+        # float32, free route: phase 6's config over two ranks
+        out, reps = run_mesh_cli(os.path.join(work, "free"), SIDE, PPC,
+                                 CLI_STEPS)
+        _mesh_tables(cli_one_out, out, SIDE, TABLE_TOL,
+                     f"cli {SIDE}^3 x {PPC} ppc f32 free")
+        h_en, en = read_table(os.path.join(out, "temporal", "energy.txt"))
+        h_ec, ec = read_table(os.path.join(out, "temporal",
+                                           "energy_conservation.txt"))
+        n_en = (len(h_en) - 1) // 2
+        closure = (np.abs(ec[:, h_ec.index("dE+dB+dK")])
+                   / en[:, 1:1 + n_en].sum(axis=1)).max()
+        n0 = SIDE ** 3 * PPC
+        for rep in reps:
+            steps = rep["step_s"]
+            log(f"[19 mesh] cli f32 free rank {rep['rank']}: "
+                f"{rep['device']} {rep['backend']}, ranks share a card "
+                f"{rep['shared_card']}; KSP {rep['ksp_history']} (one rank "
+                f"{cli_one_ksp}); step ms median "
+                f"{statistics.median(steps) * 1e3:.3f} (per step "
+                f"{[round(s * 1e3, 3) for s in steps]}); bytes exchanged a "
+                f"step {rep['mesh']['bytes_sent'] / len(steps):.0f}, "
+                f"exchange ms a step "
+                f"{rep['mesh']['seconds'] * 1e3 / len(steps):.3f}; "
+                f"particles {rep['count']}; launches {rep['launches']} | "
+                f"{card}")
+            check(rep["count"] == [n0], f"particles {rep['count']} of {n0}")
+            check(all(abs(a - b) <= 1 for a, b in zip(rep["ksp_history"],
+                                                       cli_one_ksp)),
+                  "the 2-rank CLI run's KSP iterations")
+            add(rep["launches"])
+        log(f"[19 mesh] cli f32 free: max |dE+dB+dK|/(wE+wB+wK) "
+            f"{closure:.3e} (tol {ENERGY_TOL})")
+        check(closure <= ENERGY_TOL, "the 2-rank energy identity fails")
+        _mesh_launch_gate("free", reps, "cli f32 free")
+
+        # float32, blocks route: one rank and two
+        os.environ["XPIC_MASS"] = "blocks"
+        try:
+            one, sim, _, one_l = run_cli(os.path.join(work, "blocks1"),
+                                         SIDE, PPC, CLI_STEPS, "cuda:0")
+            out, reps = run_mesh_cli(os.path.join(work, "blocks2"), SIDE,
+                                     PPC, CLI_STEPS)
+        finally:
+            del os.environ["XPIC_MASS"]
+        _mesh_tables(one, out, SIDE, TABLE_TOL,
+                     f"cli {SIDE}^3 x {PPC} ppc f32 blocks")
+        for rep in reps:
+            log(f"[19 mesh] cli f32 blocks rank {rep['rank']}: KSP "
+                f"{rep['ksp_history']} (one rank {sim.ksp_history}), "
+                f"launches {rep['launches']}")
+            add(rep["launches"])
+        _mesh_launch_gate("blocks", reps, "cli f32 blocks")
+
+        # float64 (blocks, the global sort): one rank and two, 16^3
+        with float64_runs():
+            one, sim, _, _ = run_cli(os.path.join(work, "f64one"),
+                                     MESH_F64_SIDE, MESH_F64_PPC,
+                                     MESH_F64_STEPS, "cuda:0")
+            out, reps = run_mesh_cli(os.path.join(work, "f64two"),
+                                     MESH_F64_SIDE, MESH_F64_PPC,
+                                     MESH_F64_STEPS)
+        _mesh_tables(one, out, MESH_F64_SIDE, F64_TABLE_TOL,
+                     f"cli {MESH_F64_SIDE}^3 x {MESH_F64_PPC} ppc f64")
+        for rep in reps:
+            log(f"[19 mesh] cli f64 rank {rep['rank']}: KSP "
+                f"{rep['ksp_history']} (one rank {sim.ksp_history}), "
+                f"launches {rep['launches']}")
+            check(rep["ksp_history"] == sim.ksp_history,
+                  "the float64 2-rank KSP iterations differ")
+            add(rep["launches"])
+        _mesh_launch_gate("f64", reps, "cli f64")
+    rows = {k: dict(ranks[0][k], launches=total.get(k, 0))
+            for k in ("cheb_sweep", "cheb_sweep_f64")}
+    rows["rebin_place_zghost"] = ranks[0]["k3"]
+    return total, rows
 
 
 if __name__ == "__main__":

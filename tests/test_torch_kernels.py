@@ -17,7 +17,9 @@ fma16, fma64 (FMA contraction) and reduce16 (another summation order).
 The four kernels with a float64 instantiation (Chebyshev, slot gather,
 segment fields, fill) are also held against their twins in float64, on
 the same inputs cast, within 1e-12 of the output's max; the wrappers
-take float64 and refuse float16 and bfloat16.
+take float64 and refuse float16 and bfloat16.  The Chebyshev kernel's
+slab form (one launch a sweep) and the place kernel's ghost-plane z pass
+give the whole-grid kernels' bits on one rank's slab of the whole grid.
 
     python -m pytest --noconftest -o addopts="" tests/test_torch_kernels.py -q
 """
@@ -55,6 +57,7 @@ from xpic_tpu_torch.ops.stencil_kernel import (
     cheb_matM_inv,
     cheb_matM_inv_plain,
 )
+from xpic_tpu_torch.parallel.mesh import SlabMesh
 
 pytestmark = pytest.mark.gpu
 
@@ -105,6 +108,17 @@ def test_rebin_kernels_match_twins(dev, ppc, slots, shape):
             and torch.equal(dk, dp)
         assert torch.equal(NR.rebin_place(ok, uk, dk, geom, axis),
                            NR.place_plain(op, up, dp, geom, axis))
+        if axis == 2:
+            # The z pass on a slab's ghost planes: one rank's slab of a
+            # periodic grid takes its own boundary planes as ghosts, and
+            # the kernel's ghost-plane form gives the periodic pass.
+            plane = nx * ny
+            ug = torch.cat([uk[-plane:], uk])
+            dg = torch.cat([dk, dk[:plane]])
+            assert torch.equal(NR.rebin_place(ok, ug, dg, geom, 2, True),
+                               NR.rebin_place(ok, uk, dk, geom, 2))
+            assert torch.equal(NR.rebin_place(ok, ug, dg, geom, 2, True),
+                               NR.place_plain(op, ug, dg, geom, 2, True))
         buf = NR.place_plain(op, up, dp, geom, axis)
 
 
@@ -131,6 +145,18 @@ def test_cheb_kernel_matches_twin(dev, bounds):
         assert got.dtype == dtype
         rel = float((got - ref).abs().max() / ref.abs().max())
         assert rel <= tol, name
+        # The slab form (``cheb_sweep``, one launch a sweep) on one rank's
+        # slab of the whole grid: its own boundary planes as ghosts on a
+        # periodic z, none on the reflective one; the one-launch bits.
+        mesh = SlabMesh(0, 1, geom.nz, bounds[2] == "periodic", None)
+        if mesh.up is not None:
+            mesh.exchange = lambda up, dn, kind: (up.clone(), dn.clone())
+        sweep = name.replace("cheb_step", "cheb_sweep")
+        before = kernels.LAUNCHES[sweep]
+        slab = cheb_matM_inv(rhs, shift, geom=geom.slab(mesh), degree=12,
+                             dt=geom.dt)
+        assert kernels.LAUNCHES[sweep] == before + 12
+        assert torch.equal(slab, got), sweep
 
 
 def test_cheb_kernel_one_launch_at_every_size(dev):

@@ -4,6 +4,7 @@ launch on the CPU."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -23,6 +24,9 @@ torch.set_num_threads(1)
 
 PKG = Path(xpic_tpu_torch.__file__).resolve().parent
 REPO = PKG.parent
+# The port's additions to the copied config.py.
+SLAB_BLOCK = (r"\n\n *# -- the port's slab view.*?"
+              r"# -- end of the port's slab view -*\n")
 MODULES = sorted(
     ".".join(p.relative_to(REPO).with_suffix("").parts)
     for p in PKG.rglob("*.py") if p.name != "__init__.py")
@@ -45,7 +49,9 @@ def test_imports_without_jax():
 
 
 def test_no_jax_or_reference_import_in_package():
-    for path in PKG.rglob("*.py"):
+    """Neither the package nor ``chip_smoke.py`` (which runs on a machine
+    without JAX) imports ``jax`` or ``xpic_tpu``."""
+    for path in [*PKG.rglob("*.py"), REPO / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -60,8 +66,13 @@ def test_no_jax_or_reference_import_in_package():
 
 
 def test_config_is_a_verbatim_copy():
+    """The JAX package's config.py, verbatim, plus the port's slab view of
+    a run over a z mesh in its two marked blocks."""
     ref = REPO / "xpic_tpu" / "config.py"
-    assert (PKG / "config.py").read_text() == ref.read_text()
+    port = (PKG / "config.py").read_text()
+    blocks = re.findall(SLAB_BLOCK, port, flags=re.S)
+    assert len(blocks) == 2
+    assert re.sub(SLAB_BLOCK, "\n", port, flags=re.S) == ref.read_text()
 
 
 def test_precision_pins():

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..config import parse_value, parse_vector
+from ..parallel.mesh import z0_of
 
 log = logging.getLogger("xpic")
 
@@ -173,8 +174,11 @@ class SetMagneticField:
 
     def execute(self, t: int) -> None:
         sim = self.simulation
-        B0_add = torch.as_tensor(self.setter(sim.geom), dtype=sim.B0.dtype,
-                                 device=sim.B0.device)
+        # The whole grid's field, of which a slab keeps its planes.
+        g = sim.geom
+        B0_add = self.setter(sim.cfg.geometry)[:, z0_of(g):z0_of(g) + g.nz]
+        B0_add = torch.as_tensor(np.ascontiguousarray(B0_add),
+                                 dtype=sim.B0.dtype, device=sim.B0.device)
         # The reference writes into B0 then adds it to B
         # (set_magnetic_field.cpp:76-83).
         sim.B0 = sim.B0 + B0_add

@@ -3,7 +3,9 @@
 
 The particles are drawn on the host with numpy (``particles_load``), so
 the same seed gives the same particles as the JAX package, and appended
-to the species on its device.
+to the species on its device.  On a z slab every rank draws the whole
+stream and keeps the particles of its slab (``particles.in_slab``), so
+the ranks together hold the one-rank load, bit for bit.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import os
 from .. import particles as P
 from ..particles import kinetic_energy
 from .particles_load import build_coordinate, build_momentum
+from ..parallel.mesh import mesh_of
 
 log = logging.getLogger("xpic")
 
@@ -47,11 +50,19 @@ class SetParticles:
         else:
             coords = self.gen_coordinate(self.n)
             moms = self.gen_momentum(coords)
+        n_all = coords.shape[0]
+        geom = self.species.geom
+        if mesh_of(geom) is not None:
+            keep = P.in_slab(coords, geom, self.species.arrays.r.dtype)
+            coords, moms = coords[keep], moms[keep]
         before = kinetic_energy(self.species.arrays, self.species.params)
         self.species.arrays = P.append(self.species.arrays, coords, moms)
-        self.species.n += coords.shape[0]
-        after = kinetic_energy(self.species.arrays, self.species.params)
-        self.added_energy = float(after - before)
+        self.species.n += n_all
+        added = kinetic_energy(self.species.arrays, self.species.params) \
+            - before
+        if mesh_of(geom) is not None:
+            added = mesh_of(geom).allreduce_sum(added)
+        self.added_energy = float(added)
         log.info(
             "  Added %d particles into %r (energy %.4e)",
             self.n, self.species.params.sort_name, self.added_energy,

@@ -113,6 +113,31 @@ class Geometry:
             if b not in (PERIODIC, GHOSTED, REFLECTIVE, NONE):
                 raise ValueError(f"unknown boundary kind {b!r}")
 
+    # -- the port's slab view (not in the JAX package's copy) --------------
+    # A run over a 1-D z mesh (``parallel/mesh.py``) gives each rank the
+    # slab of its z planes: ``nz`` (and ``shape``, ``n_cells``, ``Lz``)
+    # count the slab's, ``z0`` is its first global plane and ``nz_global``
+    # the grid's (0 at construction: the whole grid, one rank).  ``mesh``
+    # is the rank's ``SlabMesh``, None on one rank.  Positions stay in
+    # global grid units either way.
+    z0: int = 0
+    nz_global: int = 0
+    mesh: Any = dataclasses.field(default=None, compare=False, repr=False)
+
+    def __post_init__(self):
+        if self.nz_global == 0:
+            object.__setattr__(self, "nz_global", self.nz)
+
+    @property
+    def n_cells_global(self) -> int:
+        return self.nx * self.ny * self.nz_global
+
+    def slab(self, mesh) -> "Geometry":
+        """This rank's slab of the whole grid's geometry over ``mesh``."""
+        return dataclasses.replace(self, nz=mesh.nz_local, z0=mesh.z0,
+                                   nz_global=self.nz_global, mesh=mesh)
+    # -- end of the port's slab view ----------------------------------------
+
 
 @dataclasses.dataclass(frozen=True)
 class SortParameters:
@@ -318,6 +343,13 @@ class Config:
         n_devices = 1
         for d in mesh_shape:
             n_devices *= d
+
+        # -- the port's slab view (not in the JAX package's copy) ----------
+        if len(mesh_shape) == 1 and geometry.nz % mesh_shape[0]:
+            raise ValueError(
+                f'"Mesh": {mesh_shape[0]} does not divide the grid\'s '
+                f"{geometry.nz} z cells: every rank holds an equal z slab")
+        # -- end of the port's slab view ------------------------------------
         return Config(
             scheme=str(doc["Simulation"]),
             out_dir=str(doc.get("OutputDirectory", "results/out")),

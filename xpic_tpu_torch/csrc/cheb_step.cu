@@ -48,6 +48,20 @@
 // kernel's expression order; nvcc may contract a multiply and an add
 // into an FMA, which rounds once instead of twice (agreement with the
 // plain twin is checked to 1e-5 relative in float32, 1e-12 in float64).
+//
+// The slab form (xpic_cheb_sweep, xpic_cheb_sweep_f64): a run over a
+// 1-D z mesh of ranks holds a z slab of the field, and a launch cannot
+// wait for another process's plane, so there an apply is one launch a
+// sweep: 12 launches, with the two boundary planes of d exchanged
+// between them by the caller (11 exchanges: the first sweep reads rhs's,
+// the last reads no neighbour).  rhs, d0 and d1 carry one ghost z plane
+// on each side ([3, nz + 2, ny, nx]); x and r are the slab's own
+// [3, nz, ny, nx].  A sweep computes each element from the same values
+// in the same order as the one-launch kernel (the same tap code, the
+// scalar recurrence advanced k times from the shift), so the slab form
+// gives the one-launch kernel's bits on the same global field.  Whether
+// the ghost plane below (zlo) and above (zhi) exists is the caller's:
+// no at a non-periodic global z bound.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -95,6 +109,17 @@ struct Nbhd {
     off[axis][0] = lo * stride;
     off[axis][1] = q * stride;
     off[axis][2] = hi * stride;
+  }
+  // z on a slab: q is the own plane, the field is padded with one ghost
+  // plane a side (own plane q at padded plane q + 1).
+  __device__ __forceinline__ void set_slab(int q, int n, int zlo, int zhi,
+                                           int stride) {
+    in[2][0] = q > 0 || zlo;
+    in[2][1] = true;
+    in[2][2] = q < n - 1 || zhi;
+    off[2][0] = q * stride;
+    off[2][1] = (q + 1) * stride;
+    off[2][2] = (q + 2) * stride;
   }
   __device__ __forceinline__ bool inside(int ix, int iy, int iz) const {
     return in[0][ix] && in[1][iy] && in[2][iz];
@@ -216,6 +241,68 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Sweep k of the slab form: rhs, d_in and d_out padded, x and r own.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    cheb_sweep_kernel(const T* __restrict__ rhs, const T* __restrict__ shift,
+                      T* x, T* r, const T* d_in, T* d_out, Grid<T> g,
+                      int zlo, int zhi, T beta, T beta_lam, int k,
+                      int degree) {
+  const int plane = g.nx * g.ny;
+  const int n = plane * g.nz;
+  const int np = plane * (g.nz + 2);
+  const int total = 3 * n;
+
+  const T a = T(2) + shift[0];
+  const T b = a + beta_lam;
+  const T theta = T(0.5) * (b + a);
+  const T delta = T(0.5) * (b - a);
+  const T sigma1 = theta / delta;
+  const T inv_theta = T(1) / theta;
+  T rho = T(1) / sigma1;
+  for (int j = 0; j < k; ++j) rho = T(1) / (T(2) * sigma1 - rho);
+  const T rho_new = T(1) / (T(2) * sigma1 - rho);
+  const T cd = rho_new * rho;
+  const T cr = T(2) * rho_new / delta;
+  const bool first = (k == 0);
+  const bool last = (k == degree - 1);
+  const Field<T> F{d_in, rhs, inv_theta, first, np};
+  const int stride = gridDim.x * blockDim.x;
+  for (int tid = blockIdx.x * blockDim.x + threadIdx.x; tid < total;
+       tid += stride) {
+    const int c = tid / n;
+    const int cell = tid - c * n;
+    const int pidx = c * np + cell + plane;
+    const T dv = first ? rhs[pidx] * inv_theta : d_in[pidx];
+    x[tid] = (first ? T(0) : x[tid]) + dv;
+    if (last) continue;
+    const int row = cell / g.nx;
+    Nbhd N;
+    N.set(0, cell - row * g.nx, g.nx, g.px, 1);
+    N.set(1, row % g.ny, g.ny, g.py, g.nx);
+    N.set_slab(row / g.ny, g.nz, zlo, zhi, plane);
+    const T cc = curlcurl_at(F, N, g, c);
+    const T rv = (first ? rhs[pidx] : r[tid]) - (a * dv + beta * cc);
+    r[tid] = rv;
+    d_out[pidx] = cd * dv + cr * rv;
+  }
+}
+
+template <typename T>
+int launch_sweep(const T* rhs, const T* shift, T* x, T* r, const T* d_in,
+                 T* d_out, int nx, int ny, int nz, int px, int py, int zlo,
+                 int zhi, T ix, T iy, T iz, T beta, T beta_lam, int k,
+                 int degree, void* stream) {
+  if (degree < 1 || k < 0 || k >= degree)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Grid<T> g{nx, ny, nz, px, py, 0, ix, iy, iz};
+  const int blocks = (3 * nx * ny * nz + kThreads - 1) / kThreads;
+  cheb_sweep_kernel<T><<<blocks, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      rhs, shift, x, r, d_in, d_out, g, zlo, zhi, beta, beta_lam, k, degree);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // r, d0 and d1 are scratch fields of rhs's shape; x receives the apply.
 template <typename T>
 int launch(const T* rhs, const T* shift, T* x, T* r, T* d0, T* d1, int nx,
@@ -267,4 +354,29 @@ XPIC_API int xpic_cheb_step_f64(const double* rhs, const double* shift,
 
 XPIC_API int xpic_cheb_step_f64_info(int* out) {
   return kernel_info(cheb_apply_kernel<double>, kThreads, 0, out);
+}
+
+XPIC_API int xpic_cheb_sweep(const float* rhs, const float* shift, float* x,
+                             float* r, const float* d_in, float* d_out,
+                             int nx, int ny, int nz, int px, int py, int zlo,
+                             int zhi, float ix, float iy, float iz,
+                             float beta, float beta_lam, int k, int degree,
+                             void* stream) {
+  return launch_sweep(rhs, shift, x, r, d_in, d_out, nx, ny, nz, px, py, zlo,
+                      zhi, ix, iy, iz, beta, beta_lam, k, degree, stream);
+}
+
+XPIC_API int xpic_cheb_sweep_f64(const double* rhs, const double* shift,
+                                 double* x, double* r, const double* d_in,
+                                 double* d_out, int nx, int ny, int nz,
+                                 int px, int py, int zlo, int zhi, double ix,
+                                 double iy, double iz, double beta,
+                                 double beta_lam, int k, int degree,
+                                 void* stream) {
+  return launch_sweep(rhs, shift, x, r, d_in, d_out, nx, ny, nz, px, py, zlo,
+                      zhi, ix, iy, iz, beta, beta_lam, k, degree, stream);
+}
+
+XPIC_API int xpic_cheb_sweep_f64_info(int* out) {
+  return kernel_info(cheb_sweep_kernel<double>, kThreads, 0, out);
 }

@@ -30,7 +30,7 @@ __global__ void rebin_place_kernel(const float* __restrict__ P,
                                    const float* __restrict__ dn,
                                    float* __restrict__ out, int G, int AT,
                                    int A, int axis, int nx, int ny,
-                                   int nz) {
+                                   int nz, int zghost) {
   const int g = warp_id();
   if (g >= G) return;  // uniform across the warp
   const int lane = lane_id();
@@ -45,6 +45,9 @@ __global__ void rebin_place_kernel(const float* __restrict__ P,
     const int lo = cy == 0 ? ny - 1 : cy - 1, hi = cy == ny - 1 ? 0 : cy + 1;
     gm = (cz * ny + lo) * nx + cx;
     gp = (cz * ny + hi) * nx + cx;
+  } else if (zghost) {
+    gm = g;            // up: plane cz - 1 sits at padded plane cz
+    gp = g + nx * ny;  // dn: plane cz + 1, the ghost above the last
   } else {
     const int lo = cz == 0 ? nz - 1 : cz - 1, hi = cz == nz - 1 ? 0 : cz + 1;
     gm = (lo * ny + cy) * nx + cx;
@@ -87,9 +90,9 @@ __global__ void rebin_place_kernel(const float* __restrict__ P,
 XPIC_API int xpic_rebin_place(const float* P, const float* up,
                               const float* dn, float* out, int G, int AT,
                               int A, int axis, int nx, int ny, int nz,
-                              void* stream) {
+                              int zghost, void* stream) {
   rebin_place_kernel<<<warp_blocks(G), 32 * kWarpsPerBlock, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      P, up, dn, out, G, AT, A, axis, nx, ny, nz);
+      P, up, dn, out, G, AT, A, axis, nx, ny, nz, zghost);
   return static_cast<int>(cudaGetLastError());
 }

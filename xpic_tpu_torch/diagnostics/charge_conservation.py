@@ -18,6 +18,7 @@ from ..config import Geometry
 from ..ops.gather_scatter import cell_t, deposit_scalar
 from ..ops.stencil import divergence_negative
 from .tables import TableDiagnostic
+from ..parallel.mesh import mesh_of
 
 
 def charge_density(st, geom: Geometry, qn_Np: float):
@@ -29,10 +30,22 @@ def charge_density(st, geom: Geometry, qn_Np: float):
                           anchor=-1)
 
 
+def _norms(diff, mesh):
+    """(1-norm, 2-norm) of ``diff`` as host floats, over all ranks on a
+    slab."""
+    if mesh is None:
+        return float(torch.sum(torch.abs(diff))), \
+            float(torch.linalg.norm(diff))
+    s = mesh.allreduce_sum(torch.stack([torch.sum(torch.abs(diff)),
+                                        torch.sum(diff * diff)]))
+    return float(s[0]), float(torch.sqrt(s[1]))
+
+
 def _continuity_norms(rho_new, rho_old, J, geom: Geometry):
     diff = (rho_new - rho_old) / geom.dt
-    diff = diff + divergence_negative(J, geom.cell_steps, geom.bounds)
-    return torch.sum(torch.abs(diff)), torch.linalg.norm(diff), diff
+    diff = diff + divergence_negative(J, geom.cell_steps, geom.bounds,
+                                      mesh_of(geom))
+    return (*_norms(diff, mesh_of(geom)), diff)
 
 
 class ChargeConservation:
@@ -74,12 +87,14 @@ class ChargeConservation:
             n1, n2, _ = _continuity_norms(rho_new, rho_old, J_s, geom)
             total_ddt = total_ddt + (rho_new - rho_old) / geom.dt
             name = sp.params.sort_name
-            tb.add(13, "N1dQ_" + name, float(n1))
-            tb.add(13, "N2dQ_" + name, float(n2))
+            tb.add(13, "N1dQ_" + name, n1)
+            tb.add(13, "N2dQ_" + name, n2)
 
-        total = total_ddt + divergence_negative(sim.J, geom.cell_steps, geom.bounds)
-        tb.add(13, "N1dQ_tot", float(torch.sum(torch.abs(total))))
-        tb.add(13, "N2dQ_tot", float(torch.linalg.norm(total)))
+        total = total_ddt + divergence_negative(sim.J, geom.cell_steps,
+                                                geom.bounds, mesh_of(geom))
+        n1, n2 = _norms(total, mesh_of(geom))
+        tb.add(13, "N1dQ_tot", n1)
+        tb.add(13, "N2dQ_tot", n2)
         tb.commit(t, geom.diagnose_period)
 
     def finalize(self) -> None:

@@ -6,7 +6,9 @@ moment values as *cell-centered* quantities with a reduced order-1
 spline (the diagnostic-local ``Shape``: shr=1, shw=2, spline_of_1st_order
 at the half-shifted lattice, distribution_moment.cpp:125-155), weighted
 by n/Np, then dumps float32 binaries in the FieldView layout under
-``<out_dir>/<particles>/<moment><suffix>``.
+``<out_dir>/<particles>/<moment><suffix>``.  In a run over a z mesh the
+slabs' deposits are gathered to rank 0, which writes the whole grid's
+file (a region under a mesh is ROADMAP A11b).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from ..config import PERIODIC, Geometry, parse_value
 from ..ops.gather_scatter import cell_t, deposit_scalar
 from .field_view import format_time
+from ..parallel.mesh import mesh_of
 
 MOMENT_DOF = {
     "density": 1,
@@ -86,6 +89,10 @@ class DistributionMoment:
         suffix = ""
         region = None
         if "region" in info:
+            if mesh_of(simulation.geom) is not None:
+                from ..parallel.mesh import refuse
+
+                refuse("a DistributionMoment region with a mesh")
             reg = info["region"]
             if "suffix" in reg:
                 suffix = "_" + reg["suffix"]
@@ -167,8 +174,12 @@ class DistributionMoment:
         sim = self.simulation
         if t % sim.geom.diagnose_period != 0:
             return
-        data = self.collect(sim.binned(self.species)).to(
-            torch.float32).cpu().numpy()
+        data = self.collect(sim.binned(self.species))
+        if mesh_of(sim.geom) is not None:
+            data = mesh_of(sim.geom).gather_to_root(data, dim=0)
+            if data is None:
+                return
+        data = data.to(torch.float32).cpu().numpy()
         from .io import binary_dump
 
         binary_dump(os.path.join(self.out_dir, format_time(t, sim.geom.nt)),

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .tables import TableDiagnostic
+from ..parallel.mesh import mesh_of, cells_global_of
 
 
 def _field_stats(F):
@@ -34,16 +35,20 @@ def _kinetic_stats(p, alive):
     return comp, w, n
 
 
-def _all_stats(E, B, species_p, species_alive):
+def _all_stats(E, B, species_p, species_alive, mesh=None):
     """All Energy-diagnostic reductions in one device-to-host copy: a flat
-    stats vector [2 + 2*3 + 5*n_species]."""
+    stats vector [2 + 2*3 + 5*n_species] (summed over the ranks on a
+    slab: every entry is a sum)."""
     en_E, sums_E = _field_stats(E)
     en_B, sums_B = _field_stats(B)
     parts = [torch.stack([en_E, en_B]), sums_E, sums_B]
     for p, alive in zip(species_p, species_alive):
         comp, w, n = _kinetic_stats(p, alive)
         parts.append(torch.cat([comp, torch.stack([w, n.to(p.dtype)])]))
-    return torch.cat(parts).cpu().numpy()
+    stats = torch.cat(parts)
+    if mesh is not None:
+        stats = mesh.allreduce_sum(stats)
+    return stats.cpu().numpy()
 
 
 class Energy:
@@ -67,11 +72,12 @@ class Energy:
         The species enter in their flat view (``Species.arrays``), which
         unbins each binned species: one more copy per diagnose step."""
         sim = self.simulation
-        g3 = sim.geom.n_cells
+        g3 = cells_global_of(sim.geom)
         stats = _all_stats(
             sim.E, sim.B,
             tuple(sp.arrays.p for sp in sim.species),
             tuple(sp.arrays.alive for sp in sim.species),
+            mesh_of(sim.geom),
         )
         self.E = float(stats[0])
         self.B = float(stats[1])

@@ -5,7 +5,8 @@ Reference: src/diagnostics/field_view.cpp + src/utils/mpi_binary_file.h.
 File layout contract (consumed by tools/plotting/lib/data_format.py:34-56):
 C-ordered (z, y, x, dof) float32, one file per dump named by the
 zero-padded timestep (width = digits of nt), under
-``<out_dir>/<field><suffix>/``.
+``<out_dir>/<field><suffix>/``.  In a run over a z mesh the slabs are
+gathered to rank 0, which writes the whole grid's file.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 
 from ..config import parse_value
 from ..convert import to_numpy
+from ..parallel.mesh import mesh_of
 
 
 @dataclasses.dataclass
@@ -40,7 +42,7 @@ class FieldView:
 
     @classmethod
     def from_json(cls, simulation, info):
-        g = simulation.geom
+        g = simulation.cfg.geometry
         units = simulation.cfg.unit_table()
         start = [0, 0, 0, 0]
         size = [g.nx, g.ny, g.nz, 3]
@@ -66,7 +68,12 @@ class FieldView:
         sim = self.simulation
         if t % sim.geom.diagnose_period != 0:
             return
-        F = to_numpy(sim.get_named_field(self.field_name))  # [3, nz, ny, nx]
+        F = sim.get_named_field(self.field_name)  # [3, nz, ny, nx]
+        if mesh_of(sim.geom) is not None:
+            F = mesh_of(sim.geom).gather_to_root(F)
+            if F is None:
+                return
+        F = to_numpy(F)
         sx, sy, sz, sc = self.region.start
         nx, ny, nz, nc = self.region.size
         sub = F[sc : sc + nc, sz : sz + nz, sy : sy + ny, sx : sx + nx]

@@ -6,7 +6,8 @@ The reference overlaps dump I/O with compute through MPI-IO
 native background-thread writer (native/xpic_native.cpp AsyncWriter):
 ``submit`` copies the buffer and returns immediately, so the main loop
 dispatches the next step while the file hits disk.  Falls back to a
-synchronous ``tofile`` when the native library is unavailable.
+synchronous ``tofile`` when the native library is unavailable.  In a
+run over several ranks only rank 0 writes (``tables.is_writer``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,10 @@ _writer = None  # None = not tried, False = unavailable
 def binary_dump(path: str, data: np.ndarray) -> None:
     """Write ``data`` to ``path``, in the background when possible."""
     global _writer
+    from .tables import is_writer
+
+    if not is_writer():
+        return
     if _writer is None:
         try:
             from ..runtime.native import AsyncWriter

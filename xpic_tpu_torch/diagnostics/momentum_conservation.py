@@ -18,19 +18,24 @@ import torch
 from ..config import Geometry
 from ..ops.gather_scatter import E_STAGGER, cell_t, gather_vector
 from .tables import TableDiagnostic
+from ..parallel.mesh import mesh_of
 
 PETSC_SMALL = 1e-10
 
 
 def _momentum_and_impulse(E, st, geom: Geometry):
-    """(P, QE) as one [2, 3] host array (one device-to-host copy)."""
+    """(P, QE) as one [2, 3] host array (one device-to-host copy; summed
+    over the ranks on a slab)."""
     t = cell_t(geom, st.r)
     E_p = gather_vector(E, t, st.valid, geom, order=2, width=4, anchor=-1,
                         stagger=E_STAGGER)
     P = torch.sum(torch.where(st.valid[..., None], st.p,
                               torch.zeros_like(st.p)), dim=(0, 1))
     QE = torch.sum(E_p, dim=(0, 1))
-    return torch.stack([P, QE]).cpu().numpy()
+    out = torch.stack([P, QE])
+    if mesh_of(geom) is not None:
+        out = mesh_of(geom).allreduce_sum(out)
+    return out.cpu().numpy()
 
 
 class MomentumConservation:

@@ -3,7 +3,9 @@
 
 Reference: src/diagnostics/utils/table_diagnostic.{h,cpp} — titles are
 left-aligned in their column width, values centered, columns joined by
-two spaces, trailing spaces stripped.
+two spaces, trailing spaces stripped.  In a run over several ranks only
+rank 0 writes (:func:`is_writer`); the others format into the null
+device, so that every rank runs the same code.
 """
 
 from __future__ import annotations
@@ -11,11 +13,22 @@ from __future__ import annotations
 import os
 
 
+def is_writer() -> bool:
+    """True unless this process is a rank other than 0 of a process
+    group: the one process of a run that writes its files."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 class TableDiagnostic:
     def __init__(self, filename: str):
-        os.makedirs(os.path.dirname(filename) or ".", exist_ok=True)
         self.filename = filename
-        self._file = open(filename, "w")
+        if is_writer():
+            os.makedirs(os.path.dirname(filename) or ".", exist_ok=True)
+            self._file = open(filename, "w")
+        else:
+            self._file = open(os.devnull, "w")
         self.titles: list[str] = []
         self.values: list[str] = []
         self._wrote_header = False

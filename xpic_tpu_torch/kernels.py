@@ -50,10 +50,15 @@ SIGNATURES = {
     # 1/dx, 1/dy, 1/dz, beta, beta*lam_cc, degree, stream
     "cheb_step": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                   _F, _F, _F, _F, _F, _I, _P),
+    # The slab form, one sweep a launch: rhs, shift, x, r, d_in, d_out,
+    # nx, ny, nz (own planes), periodic x/y, ghost plane below/above,
+    # 1/dx, 1/dy, 1/dz, beta, beta*lam_cc, sweep k, degree, stream
+    "cheb_sweep": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                   _F, _F, _F, _F, _F, _I, _I, _P),
     # P, out, up, dn, G, AT, A, axis, n_ax, nx, ny, stream
     "rebin_extract": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # P, up, dn, out, G, AT, A, axis, nx, ny, nz, stream
-    "rebin_place": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # P, up, dn, out, G, AT, A, axis, nx, ny, nz, z ghost planes, stream
+    "rebin_place": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # xg, packed, Y, G, K, stream
     "mass_apply": (_P, _P, _P, _I, _I, _P),
     # t, Fg, out, G, K, stream
@@ -68,12 +73,15 @@ SIGNATURES = {
     # The float64 instantiations: the rows above with double scalars.
     "cheb_step_f64": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _D, _D, _D, _D, _D, _I, _P),
+    "cheb_sweep_f64": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _D, _D, _D, _D, _D, _I, _I, _P),
     "slot_gather_f64": (_P, _P, _P, _I, _I, _P),
     "segment_fields_f64": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _P),
     "ecsim_fill_f64": (_P, _P, _P, _P, _P, _P, _I, _I, _D, _D, _D, _P),
 }
 # The kernels with a float64 entry point, and its suffix.
-F64_KERNELS = ("cheb_step", "slot_gather", "segment_fields", "ecsim_fill")
+F64_KERNELS = ("cheb_step", "cheb_sweep", "slot_gather", "segment_fields",
+               "ecsim_fill")
 F64 = "_f64"
 # What kernel_info reports, in the order of the C side's out[5].
 INFO_KEYS = ("registers", "smem_bytes", "threads", "warps_per_sm",

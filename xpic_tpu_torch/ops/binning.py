@@ -9,6 +9,12 @@ Migration: float32 states take the dimension-split neighbor exchange
 (``ops/neighbor_rebin.py``), guarded by an exact check that routes a
 step it cannot route losslessly to the global sort; other dtypes take
 the global sort, as the JAX package's default does.
+
+On a z slab (``geom.mesh``) the state holds the slab's cells; positions
+stay in global grid units.  The global sort all-gathers every rank's
+leavers in rank order and sorts the rank's stayers and arrivals by
+(global cell, global source slot): the order of the one-rank sort.  The
+guard's decision is taken together by all ranks.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import torch
 
 from ..config import PERIODIC, REFLECTIVE, Geometry
 from ..particles import ParticleArrays, cell_ids, sort_by_cell
+from ..parallel.mesh import mesh_of, z0_of, nz_global_of, cells_global_of
 
 
 @dataclasses.dataclass
@@ -46,20 +53,35 @@ def _cell_centers(geom: Geometry, dtype, device=None) -> torch.Tensor:
         [
             (g % geom.nx).to(dtype) + 0.5,
             ((g // geom.nx) % geom.ny).to(dtype) + 0.5,
-            (g // (geom.nx * geom.ny)).to(dtype) + 0.5,
+            (g // (geom.nx * geom.ny) + z0_of(geom)).to(dtype) + 0.5,
         ],
         dim=-1,
     )[:, None, :]
 
 
-def state_cell_ids(st: BinnedState, geom: Geometry) -> torch.Tensor:
-    """Flat cell id per slot from the current positions (dead -> G)."""
+def state_global_ids(st: BinnedState, geom: Geometry) -> torch.Tensor:
+    """Global flat cell id per slot from the current positions (dead ->
+    the global cell count)."""
     c = torch.floor(st.r).to(torch.int64)
     cx = torch.clamp(c[..., 0], 0, geom.nx - 1)
     cy = torch.clamp(c[..., 1], 0, geom.ny - 1)
-    cz = torch.clamp(c[..., 2], 0, geom.nz - 1)
+    cz = torch.clamp(c[..., 2], 0, nz_global_of(geom) - 1)
     flat = (cz * geom.ny + cy) * geom.nx + cx
-    return torch.where(st.valid, flat, torch.full_like(flat, geom.n_cells))
+    return torch.where(st.valid, flat,
+                       torch.full_like(flat, cells_global_of(geom)))
+
+
+def state_cell_ids(st: BinnedState, geom: Geometry) -> torch.Tensor:
+    """Flat cell id per slot from the current positions (dead -> G; on a
+    slab, a live slot in another rank's slab -> G + 1)."""
+    flat = state_global_ids(st, geom)
+    if mesh_of(geom) is None:
+        return flat
+    local = flat - z0_of(geom) * geom.ny * geom.nx
+    G = geom.n_cells
+    off = (local < 0) | (local >= G)
+    return torch.where(st.valid, torch.where(off, G + 1, local),
+                       torch.full_like(flat, G))
 
 
 def max_per_cell(sp: ParticleArrays, geom: Geometry) -> int:
@@ -124,7 +146,8 @@ def _drift_impl(st: BinnedState, geom: Geometry, dt: float | None = None
     applied (periodic wrap / reflective clamp + flip / open kill)."""
     dev, dtype = st.r.device, st.r.dtype
     d = torch.tensor(geom.cell_steps, dtype=dtype, device=dev)
-    n = torch.tensor([geom.nx, geom.ny, geom.nz], dtype=dtype, device=dev)
+    n = torch.tensor([geom.nx, geom.ny, nz_global_of(geom)], dtype=dtype,
+                     device=dev)
     dt = geom.dt if dt is None else dt
     r = st.r + st.p * (dt / d)
     per = torch.tensor([b == PERIODIC for b in geom.bounds], device=dev)
@@ -147,8 +170,11 @@ def _rebin_global(st: BinnedState, geom: Geometry):
 
     A stable sort of the flat slot ids (the (id, slot) order of the JAX
     package) plus one packed 6-column gather.  Returns ``(state, load)``
-    with ``load = [max_per_cell, dropped, moved]`` (int64 tensor).
+    with ``load = [max_per_cell, dropped, moved]`` (int64 tensor; the
+    rank's own on a slab).
     """
+    if mesh_of(geom) is not None:
+        return _rebin_global_slab(st, geom)
     G, K = st.valid.shape
     NK = G * K
     ids = state_cell_ids(st, geom).reshape(NK)
@@ -156,21 +182,67 @@ def _rebin_global(st: BinnedState, geom: Geometry):
     moved = torch.sum((ids != tie // K) & (ids < G))
     s_ids, perm = torch.sort(ids, stable=True)
     payload = torch.cat([st.r, st.p], dim=-1).reshape(NK, 6)[perm]
+    return _place_sorted(s_ids, payload, geom, K, moved)
 
-    seg = torch.searchsorted(s_ids, _arange(G + 1, ids))
+
+def _place_sorted(cell, payload, geom: Geometry, K: int, moved):
+    """The binned state of particles sorted by their cell ``cell`` ([N],
+    ascending; G and above: no cell), with ``payload`` [N, 6]: slot k of
+    cell g holds the k-th particle of g.  Returns ``(state, load)``,
+    ``load = [max_per_cell, dropped, moved]``."""
+    dtype, device = payload.dtype, payload.device
+    G = geom.n_cells
+    N = cell.shape[0]
+    seg = torch.searchsorted(cell, torch.arange(G + 1, dtype=torch.int64,
+                                                device=device))
     counts = seg[1:] - seg[:G]
+    pos = seg[:G, None] + torch.arange(K, dtype=torch.int64,
+                                       device=device)[None, :]
+    valid = pos < seg[1:, None]
+    if N:
+        rp = payload[torch.clamp(pos, max=N - 1)]
+    else:
+        rp = torch.zeros((G, K, 6), dtype=dtype, device=device)
+    center = _cell_centers(geom, dtype, device)
+    r = torch.where(valid[..., None], rp[..., :3], center)
+    p = torch.where(valid[..., None], rp[..., 3:], torch.zeros_like(center))
     load = torch.stack([torch.max(counts),
                         torch.sum(torch.clamp(counts - K, min=0)), moved])
-
-    k = _arange(K, ids)[None, :]
-    pos = seg[:G, None] + k
-    valid = pos < seg[1:, None]
-    rp = payload[torch.clamp(pos, max=NK - 1)]
-    r, p = rp[..., :3], rp[..., 3:]
-    center = _cell_centers(geom, st.r.dtype, st.r.device)
-    r = torch.where(valid[..., None], r, center)
-    p = torch.where(valid[..., None], p, torch.zeros_like(p))
     return BinnedState(r=r, p=p, valid=valid), load
+
+
+def _rebin_global_slab(st: BinnedState, geom: Geometry):
+    """:func:`_rebin_global` on a z slab: every rank's leavers are
+    all-gathered in rank order with their global cell and global source
+    slot (cell * K + slot, K the same on every rank), and the rank's
+    stayers and arrivals are sorted by (global cell, global source
+    slot), the order of the one-rank stable sort."""
+    mesh = mesh_of(geom)
+    G, K = st.valid.shape
+    NK = G * K
+    base = z0_of(geom) * geom.ny * geom.nx
+    gid = state_global_ids(st, geom).reshape(NK)
+    src = base * K + _arange(NK, gid)
+    live = gid < cells_global_of(geom)
+    moved = torch.sum(live & (gid != src // K))
+    own = live & (gid >= base) & (gid < base + G)
+    leave = live & ~own
+    payload = torch.cat([st.r, st.p], dim=-1).reshape(NK, 6)
+    keys = [torch.stack([gid[own], src[own]], dim=1)]
+    pays = [payload[own]]
+    k_all = mesh.allgather_rows(torch.stack([gid[leave], src[leave]], 1))
+    p_all = mesh.allgather_rows(payload[leave])
+    for r, (k, p) in enumerate(zip(k_all, p_all)):
+        if r == mesh.rank:
+            continue
+        mine = (k[:, 0] >= base) & (k[:, 0] < base + G)
+        keys.append(k[mine])
+        pays.append(p[mine])
+    keys = torch.cat(keys)
+    pays = torch.cat(pays)
+    order = torch.argsort((keys[:, 0] - base) * (cells_global_of(geom) * K)
+                          + keys[:, 1])
+    return _place_sorted(keys[order, 0] - base, pays[order], geom, K, moved)
 
 
 def _rebin_neighbor_guarded(st: BinnedState, geom: Geometry):
@@ -183,6 +255,9 @@ def _rebin_neighbor_guarded(st: BinnedState, geom: Geometry):
     if st.r.dtype != torch.float32:
         return _rebin_global(st, geom)
     ok, moved, n_before = neighbor_guard_stats(st, geom)
+    if mesh_of(geom) is not None:
+        # Every rank takes the same route.
+        ok = mesh_of(geom).allreduce_max((~ok).to(torch.int32)) == 0
     if bool(ok):
         return rebin_neighbor(st, geom, stats=(moved, n_before))
     return _rebin_global(st, geom)

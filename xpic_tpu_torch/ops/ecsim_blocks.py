@@ -22,7 +22,12 @@ from __future__ import annotations
 import torch
 
 from ..config import Geometry
-from .gather_scatter import _unroll_back, axis_weights, rolled_flat
+from .gather_scatter import Placed, _folded, axis_weights, pad_for, \
+    rolled_flat
+from ..parallel.mesh import mesh_of
+
+# Ghost z planes (below, above) the slot offsets read on a slab.
+ZPAD = (1, 1)
 
 # Static slot -> (dz, dy, dx) offset tables per component.
 OFFSETS = (
@@ -94,22 +99,21 @@ def deposit_slot_sums(Islot, geom: Geometry):
     [3, nz, ny, nx] as 36 shifted whole-grid adds in a fixed order."""
     comps = []
     for c in range(3):
-        acc = None
+        acc = Placed(geom, ZPAD)
         for s in range(12):
-            contrib = _unroll_back(
-                Islot[:, c, s].reshape(geom.shape), OFFSETS[c][s],
-                geom.bounds)
-            acc = contrib if acc is None else acc + contrib
-        comps.append(acc)
-    return torch.stack(comps)
+            acc.add(Islot[:, c, s].reshape(geom.shape), OFFSETS[c][s])
+        comps.append(acc.acc)
+    return _folded(torch.stack(comps), geom, ZPAD)
 
 
 def gather_slots(F, geom: Geometry):
     """Gather the 12 slot values per component per cell: [G, 3, 12]."""
+    zpad = None if mesh_of(geom) is None else ZPAD
+    F = pad_for(F, geom, zpad)
     cols = []
     for c in range(3):
         cols.append(torch.stack(
-            [rolled_flat(F[c], OFFSETS[c][s], geom.bounds)
+            [rolled_flat(F[c], OFFSETS[c][s], geom.bounds, zpad)
              for s in range(12)], dim=-1))
     return torch.stack(cols, dim=-2)
 

@@ -11,6 +11,13 @@ the result is bitwise deterministic for a fixed particle order.
 Anchors (offsets from the cell index ``c = floor(r/d)``): order-2 single
 position anchor -1 width 4; order-2 position pair anchor -2 width 6;
 order-1 (ECSIM s1) anchor -1 width 3.
+
+On a z slab (``geom.mesh``) a gather pads the field once with the
+window's ghost planes from the neighbour ranks and crops them away
+(``rolled_flat`` with ``zpad``); a deposit adds into ghost-padded planes
+and folds the ghost sums onto the ranks that own them (:class:`Placed`).
+A gather reads the values of the whole grid's; a deposit adds the same
+summands, those of a neighbour's particles after the rank's own.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 from ..config import Geometry
 from .splines import spline
 from .stencil import shift
+from ..parallel.mesh import mesh_of, z0_of
 
 # Yee staggering tables: entry [c][axis] == 1 if component c is shifted
 # half a step along that axis.
@@ -39,10 +47,24 @@ def _cell_coords_cached(nx: int, ny: int, nz: int):
 def cell_t(geom: Geometry, rg: torch.Tensor) -> torch.Tensor:
     """Per-axis position of each slot relative to its cell index:
     ``rg`` [G, K, 3] in grid units -> t = rg - cell, in [0, 1)."""
-    cell = torch.as_tensor(
-        _cell_coords_cached(geom.nx, geom.ny, geom.nz), device=rg.device
-    ).to(rg.dtype)[:, None, :]
+    coords = _cell_coords_cached(geom.nx, geom.ny, geom.nz)
+    if z0_of(geom):
+        coords = coords + np.array([0, 0, z0_of(geom)])
+    cell = torch.as_tensor(coords, device=rg.device).to(rg.dtype)[:, None, :]
     return rg - cell
+
+
+def z_halo(anchor: int, width: int) -> tuple[int, int]:
+    """Ghost planes (below, above) a window of ``width`` offsets from
+    ``anchor`` reads on a slab."""
+    return max(0, -anchor), max(0, anchor + width - 1)
+
+
+def pad_for(F: torch.Tensor, geom: Geometry, zpad):
+    """``F`` with the ghost planes ``zpad = (lo, hi)`` on a slab (as is
+    on one rank)."""
+    mesh = mesh_of(geom)
+    return F if mesh is None else mesh.halo_pad(F, *zpad)
 
 
 def axis_weights(t: torch.Tensor, order: int, width: int, anchor: int,
@@ -56,12 +78,17 @@ def axis_weights(t: torch.Tensor, order: int, width: int, anchor: int,
 
 
 def rolled_flat(field: torch.Tensor, off: tuple[int, int, int],
-                bounds: tuple[str, str, str]) -> torch.Tensor:
+                bounds: tuple[str, str, str], zpad=None) -> torch.Tensor:
     """The grid tensor [nz, ny, nx] sampled at cell+off (oz, oy, ox),
-    flattened to [G]."""
+    flattened to [G].  ``zpad = (lo, hi)``: ``field`` is a slab padded
+    with lo ghost planes below and hi above, read there without wrap."""
     out = field
     for axis, o in zip("zyx", off):
-        out = shift(out, axis, o, bounds["xyz".index(axis)])
+        if axis == "z" and zpad is not None:
+            lo, hi = zpad
+            out = out.narrow(-3, lo + o, out.shape[-3] - lo - hi)
+        else:
+            out = shift(out, axis, o, bounds["xyz".index(axis)])
     return out.reshape(-1)
 
 
@@ -71,6 +98,36 @@ def _unroll_back(dense, off, bounds):
     for axis, o in zip("zyx", off):
         out = shift(out, axis, -o, bounds["xyz".index(axis)])
     return out
+
+
+class Placed:
+    """Per-cell sums ``dense`` [..., nz, ny, nx] placed at cell+off and
+    added in the order of the :meth:`add` calls.  On one rank each
+    summand is a whole-grid shift (periodic roll or zero fill); on a
+    slab it lands in planes padded with ``zpad = (lo, hi)`` ghost planes,
+    which :meth:`result` folds onto the ranks that own them."""
+
+    def __init__(self, geom: Geometry, zpad):
+        self.geom, self.zpad = geom, zpad
+        self.acc = None
+
+    def add(self, dense, off) -> None:
+        geom = self.geom
+        if mesh_of(geom) is None:
+            contrib = _unroll_back(dense, off, geom.bounds)
+            self.acc = contrib if self.acc is None else self.acc + contrib
+            return
+        lo, hi = self.zpad
+        if self.acc is None:
+            shape = list(dense.shape)
+            shape[-3] += lo + hi
+            self.acc = torch.zeros(shape, dtype=dense.dtype,
+                                   device=dense.device)
+        contrib = _unroll_back(dense, (0,) + tuple(off[1:]), geom.bounds)
+        self.acc.narrow(-3, lo + off[0], dense.shape[-3]).add_(contrib)
+
+    def result(self):
+        return _folded(self.acc, self.geom, self.zpad)
 
 
 def _component_axis_weights(t, order, width, anchor, stag_row):
@@ -85,6 +142,8 @@ def gather_vector(F, t, valid, geom: Geometry, *, order: int, width: int,
                   anchor: int, stagger=E_STAGGER) -> torch.Tensor:
     """Interpolate a staggered vector field ``F`` [3, nz, ny, nx] to the
     binned slots; returns [G, K, 3] (zero on invalid slots)."""
+    zpad = None if mesh_of(geom) is None else z_halo(anchor, width)
+    F = pad_for(F, geom, zpad)
     out = []
     for c in range(3):
         wx, wy, wz = _component_axis_weights(t, order, width, anchor,
@@ -95,7 +154,7 @@ def gather_vector(F, t, valid, geom: Geometry, *, order: int, width: int,
                 wzy = wz[..., oz] * wy[..., oy]
                 for ox in range(width):
                     f = rolled_flat(F[c], (anchor + oz, anchor + oy,
-                                           anchor + ox), geom.bounds)
+                                           anchor + ox), geom.bounds, zpad)
                     acc = acc + (wzy * wx[..., ox]) * f[:, None]
         out.append(acc)
     res = torch.stack(out, dim=-1)
@@ -108,17 +167,22 @@ def _unrolled_deposit(geom: Geometry, width, anchor, weight_fn):
     a fixed offset order."""
     comps = []
     for c in range(3):
-        acc = None
+        acc = Placed(geom, z_halo(anchor, width))
         for oz in range(width):
             for oy in range(width):
                 for ox in range(width):
                     w = weight_fn(c, oz, oy, ox)
                     dense = torch.sum(w, dim=1).reshape(geom.shape)
-                    off = (anchor + oz, anchor + oy, anchor + ox)
-                    contrib = _unroll_back(dense, off, geom.bounds)
-                    acc = contrib if acc is None else acc + contrib
-        comps.append(acc)
-    return torch.stack(comps)
+                    acc.add(dense, (anchor + oz, anchor + oy, anchor + ox))
+        comps.append(acc.acc)
+    return _folded(torch.stack(comps), geom, z_halo(anchor, width))
+
+
+def _folded(acc, geom: Geometry, zpad):
+    """The stacked padded sums of several :class:`Placed` folded at once
+    (one exchange); as is on one rank."""
+    mesh = mesh_of(geom)
+    return acc if mesh is None else mesh.halo_fold(acc, *zpad)
 
 
 def deposit_vector(values, t, valid, geom: Geometry, *, order: int,
@@ -148,17 +212,14 @@ def deposit_scalar(values, t, valid, geom: Geometry, *, order: int,
     wx = axis_weights(t[..., 0], order, width, anchor, stag)
     wy = axis_weights(t[..., 1], order, width, anchor, stag)
     wz = axis_weights(t[..., 2], order, width, anchor, stag)
-    acc = None
+    acc = Placed(geom, z_halo(anchor, width))
     for oz in range(width):
         for oy in range(width):
             for ox in range(width):
                 w = masked * (wz[..., oz] * wy[..., oy] * wx[..., ox])
                 dense = torch.sum(w, dim=1).reshape(geom.shape)
-                contrib = _unroll_back(
-                    dense, (anchor + oz, anchor + oy, anchor + ox),
-                    geom.bounds)
-                acc = contrib if acc is None else acc + contrib
-    return acc
+                acc.add(dense, (anchor + oz, anchor + oy, anchor + ox))
+    return acc.result()
 
 
 def blocks_to_grid(blk, geom: Geometry, width: int, anchor: int):
@@ -168,17 +229,14 @@ def blocks_to_grid(blk, geom: Geometry, width: int, anchor: int):
     reads, every summand a whole-grid shift."""
     comps = []
     for c in range(3):
-        acc = None
+        acc = Placed(geom, z_halo(anchor, width))
         for oz in range(width):
             for oy in range(width):
                 for ox in range(width):
                     dense = blk[:, c, oz, oy, ox].reshape(geom.shape)
-                    contrib = _unroll_back(
-                        dense, (anchor + oz, anchor + oy, anchor + ox),
-                        geom.bounds)
-                    acc = contrib if acc is None else acc + contrib
-        comps.append(acc)
-    return torch.stack(comps)
+                    acc.add(dense, (anchor + oz, anchor + oy, anchor + ox))
+        comps.append(acc.acc)
+    return _folded(torch.stack(comps), geom, z_halo(anchor, width))
 
 
 def esirkepov_current(t_old, t_new, valid, alpha, geom: Geometry):

@@ -24,6 +24,16 @@ The guard (:func:`neighbor_guard_stats`) is exact: it simulates the
 buffer routing at the counting level, so any step the exchange could not
 route losslessly takes the global sort instead.
 
+On a z slab (``geom.mesh``) the x and y passes run on the slab as they
+are.  The z pass classifies against the slab's own planes: the buffer's
+z channel is stashed in its spare channel 7 and replaced by the slab
+plane each mover goes to, wrapped around the slab, so that the extract
+kernel's periodic +1 / -1 classes are the moves across the slab faces
+as well.  The up and down buffers then take one ghost plane each from
+the neighbour ranks (the movers that leave them across the face), the
+place kernel reads the z neighbours there without wrap (its ``zghost``
+form), and channel 7 goes back into the z channel.
+
 The extract and place kernels are hand-written CUDA
 (``csrc/rebin_extract.cu``, ``csrc/rebin_place.cu``); ``extract_plain``
 and ``place_plain`` are their PyTorch twins, taken for CPU tensors.
@@ -36,6 +46,7 @@ import torch
 from .. import kernels
 from ..config import PERIODIC, Geometry
 from .binning import BinnedState, _cell_centers, state_cell_ids
+from ..parallel.mesh import mesh_of, z0_of, nz_global_of
 
 # Payload channels of the mover buffer.
 CHANNELS = 8
@@ -76,6 +87,15 @@ def _home_coord(geom: Geometry, axis: int, device) -> torch.Tensor:
     if axis == 1:
         return (g // geom.nx) % geom.ny
     return g // (geom.nx * geom.ny)
+
+
+def _global_axis(geom: Geometry, axis: int, device):
+    """``(home, n)``: each cell's global coordinate along ``axis`` and
+    the global extent (the slab's z origin added on a slab)."""
+    home = _home_coord(geom, axis, device)
+    if axis == 2:
+        return home + z0_of(geom), nz_global_of(geom)
+    return home, (geom.nx, geom.ny)[axis]
 
 
 # -- plain twins of the two kernels ----------------------------------------
@@ -134,14 +154,21 @@ def _shift_right(D, v, L: int):
     return torch.where(ok[:, None, :], src, torch.zeros_like(src))
 
 
-def place_plain(P, up, dn, geom: Geometry, axis_ch: int):
+def place_plain(P, up, dn, geom: Geometry, axis_ch: int,
+                zghost: bool = False):
     """Twin of the place kernel: each cell appends the up-arrivals of
     its -1 neighbor along the axis, then the down-arrivals of its +1
     neighbor, after its left-compacted residents; whatever passes the
-    AT lanes is dropped."""
+    AT lanes is dropped.  ``zghost`` (z pass on a slab): ``up`` carries
+    a ghost plane below the slab and ``dn`` one above, read without
+    wrap."""
     grid_axis = 2 - axis_ch
-    up_nb = _roll_cells(up, geom, grid_axis, +1)
-    dn_nb = _roll_cells(dn, geom, grid_axis, -1)
+    if zghost:
+        G = P.shape[0]
+        up_nb, dn_nb = up[:G], dn[geom.nx * geom.ny:]
+    else:
+        up_nb = _roll_cells(up, geom, grid_axis, +1)
+        dn_nb = _roll_cells(dn, geom, grid_axis, -1)
     L = P.shape[-1]
     n_res = P[:, _VALID_CH, :].to(torch.int64).sum(dim=-1)
     a_up = up_nb[:, _VALID_CH, :].to(torch.int64).sum(dim=-1)
@@ -183,26 +210,32 @@ def rebin_extract(P, geom: Geometry, axis_ch: int):
     return out, up, dn
 
 
-def rebin_place(P, up, dn, geom: Geometry, axis_ch: int):
+def rebin_place(P, up, dn, geom: Geometry, axis_ch: int,
+                zghost: bool = False):
     """Place pass (with the +-1-cell rolls of the direction buffers
     folded in as neighbor reads): the CUDA kernel for CUDA float32
-    tensors, the plain twin for CPU tensors; raises otherwise."""
+    tensors, the plain twin for CPU tensors; raises otherwise.
+    ``zghost``: the z pass on a slab, ``up`` and ``dn`` with their ghost
+    planes (:func:`place_plain`)."""
     if P.device.type == "cpu":
-        return place_plain(P, up, dn, geom, axis_ch)
+        return place_plain(P, up, dn, geom, axis_ch, zghost)
     if P.device.type != "cuda":
         raise RuntimeError(f"rebin_place: unsupported device {P.device}")
     G, C, AT = P.shape
     A = _mover_cols(AT)
     _check_at(AT)
+    if zghost and axis_ch != 2:
+        raise ValueError("rebin_place: ghost planes are a z pass's")
+    Gb = G + geom.nx * geom.ny if zghost else G
     kernels.check_operand("rebin_place", P, (geom.n_cells, CHANNELS, AT))
-    kernels.check_operand("rebin_place up", up, (G, CHANNELS, A))
-    kernels.check_operand("rebin_place dn", dn, (G, CHANNELS, A))
+    kernels.check_operand("rebin_place up", up, (Gb, CHANNELS, A))
+    kernels.check_operand("rebin_place dn", dn, (Gb, CHANNELS, A))
     if not (up.device == dn.device == P.device):
         raise ValueError("rebin_place: tensors on different devices")
     out = torch.empty_like(P)
     kernels.call("rebin_place", P.data_ptr(), up.data_ptr(), dn.data_ptr(),
                  out.data_ptr(), G, AT, A, axis_ch, geom.nx, geom.ny,
-                 geom.nz, device=P.device)
+                 geom.nz, int(zghost), device=P.device)
     return out
 
 
@@ -218,7 +251,9 @@ def _axis_direction_masks(st: BinnedState, geom: Geometry):
     dev = st.valid.device
     masks = []
     far = torch.zeros((G, K), dtype=torch.bool, device=dev)
-    for axis, _grid, n in _axes(geom):
+    for axis, _grid, _n in _axes(geom):
+        home, n = _global_axis(geom, axis, dev)
+        home = home[:, None]
         if n == 1:
             z = torch.zeros((G, K), dtype=torch.bool, device=dev)
             masks.append((z, z, torch.ones_like(z)))
@@ -226,7 +261,6 @@ def _axis_direction_masks(st: BinnedState, geom: Geometry):
         periodic = geom.bounds[axis] == PERIODIC
         c = torch.clamp(torch.floor(st.r[..., axis]).to(torch.int64),
                         0, n - 1)
-        home = _home_coord(geom, axis, dev)[:, None]
         stay = c == home
         plus = c == home + 1
         minus = c == home - 1
@@ -244,12 +278,13 @@ def _axis_direction_masks(st: BinnedState, geom: Geometry):
 def far_mover_count(st: BinnedState, geom: Geometry) -> torch.Tensor:
     """Number of live slots whose move exceeds one cell along any axis."""
     total = torch.zeros((), dtype=torch.int64, device=st.valid.device)
-    for axis, _grid, n in _axes(geom):
+    for axis, _grid, _n in _axes(geom):
+        home, n = _global_axis(geom, axis, st.valid.device)
+        home = home[:, None]
         if n == 1:
             continue
         c = torch.clamp(torch.floor(st.r[..., axis]).to(torch.int64),
                         0, n - 1)
-        home = _home_coord(geom, axis, st.valid.device)[:, None]
         d = torch.abs(c - home)
         near = d <= 1
         if geom.bounds[axis] == PERIODIC:
@@ -267,7 +302,10 @@ def neighbor_guard_stats(st: BinnedState, geom: Geometry):
     buffer at every stage: leavers <= AT and x counts <= A at the
     origin; occupancy <= AT and y counts <= A after the x pass;
     occupancy <= AT and z counts <= A after the y pass; arrivals <= AT.
-    Plus no far movers."""
+    Plus no far movers.  On a slab the counts cross the slab faces
+    through the mesh, the slab holds at least 3 planes (the extract
+    kernel has no -1 class on 2), and ``neighbor_ok`` is the rank's own:
+    the caller reduces it over the ranks."""
     G, K = st.valid.shape
     AT = _buffer_cols(K)
     A = _mover_cols(K)
@@ -321,7 +359,15 @@ def neighbor_guard_stats(st: BinnedState, geom: Geometry):
     ok &= torch.max(zp2) <= A
     ok &= torch.max(zm2) <= A
 
-    occ3 = roll3(zp2, gz=1) + roll3(zm2, gz=-1) + (occ2 - zp2 - zm2)
+    if mesh_of(geom) is None:
+        from_dn, from_up = roll3(zp2, gz=1), roll3(zm2, gz=-1)
+    else:
+        ok &= geom.nz >= 3
+        zz = mesh_of(geom).halo_pad(
+            torch.stack([zp2, zm2]).reshape((2,) + shape3), 1, 1, dim=1)
+        from_dn = zz[0].narrow(0, 0, geom.nz).reshape(-1)
+        from_up = zz[1].narrow(0, 2, geom.nz).reshape(-1)
+    occ3 = from_dn + from_up + (occ2 - zp2 - zm2)
     ok &= torch.max(occ3) <= AT
     return ok, moved, n_before
 
@@ -355,6 +401,53 @@ def partition_movers(st: BinnedState, geom: Geometry):
     return planes, key_s == 0, buf, mover
 
 
+def slab_z_proxy(buf, geom: Geometry):
+    """The z pass's buffer on a slab: channel 7 takes the z positions,
+    channel 2 the slab plane each live lane goes to (+0.5), wrapped
+    around the slab's planes."""
+    z = buf[:, 2, :]
+    live = buf[:, _VALID_CH, :] > 0.5
+    home, n = _global_axis(geom, 2, buf.device)
+    cz = torch.clamp(torch.floor(z).to(torch.int64), 0, n - 1)
+    dz = cz - home[:, None]
+    dz = torch.where(dz > n // 2, dz - n,
+                     torch.where(dz < -(n // 2), dz + n, dz))
+    home = home[:, None] - z0_of(geom)
+    proxy = torch.remainder(home + dz, geom.nz).to(buf.dtype) + 0.5
+    out = buf.clone()
+    out[:, 7, :] = z
+    out[:, 2, :] = torch.where(live, proxy, torch.zeros_like(z))
+    return out
+
+
+def slab_z_ghosts(up, dn, geom: Geometry):
+    """The z pass's up buffer with a ghost plane below the slab (the down
+    rank's top-plane up movers) and its down buffer with one above (the
+    up rank's bottom-plane down movers): one exchange."""
+    plane = geom.nx * geom.ny
+    G = up.shape[0]
+    to_up, to_dn = up[G - plane:], dn[:plane]
+    from_dn, from_up = mesh_of(geom).exchange(to_up, to_dn, "rebin_z")
+    if from_dn is None:
+        from_dn = torch.zeros_like(to_up)
+    if from_up is None:
+        from_up = torch.zeros_like(to_dn)
+    return torch.cat([from_dn, up]), torch.cat([dn, from_up])
+
+
+def _slab_z_pass(buf, geom: Geometry, plain: bool):
+    buf = slab_z_proxy(buf, geom)
+    extract = extract_plain if plain else rebin_extract
+    place = place_plain if plain else rebin_place
+    buf, up, dn = extract(buf, geom, 2)
+    up, dn = slab_z_ghosts(up, dn, geom)
+    buf = place(buf, up, dn, geom, 2, True)
+    out = buf.clone()
+    out[:, 2, :] = buf[:, 7, :]
+    out[:, 7, :] = 0.0
+    return out
+
+
 def rebin_neighbor(st: BinnedState, geom: Geometry, *, stats=None,
                    plain: bool = False):
     """Dimension-split neighbor migration; returns ``(state, load)`` with
@@ -378,7 +471,9 @@ def rebin_neighbor(st: BinnedState, geom: Geometry, *, stats=None,
     for axis_ch, _grid_axis, n_ax in _axes(geom):
         if n_ax == 1:
             continue
-        if plain:
+        if axis_ch == 2 and mesh_of(geom) is not None:
+            buf = _slab_z_pass(buf, geom, plain)
+        elif plain:
             buf, up, dn = extract_plain(buf, geom, axis_ch)
             buf = place_plain(buf, up, dn, geom, axis_ch)
         else:

@@ -5,6 +5,11 @@ Field tensors are ``[3, nz, ny, nx]`` with components (x, y, z) leading
 and x fastest-varying.  Positive (forward) shifts form ``rotE`` on the
 edge-centered electric field; negative (backward) shifts form ``rotB``
 on the face-centered magnetic field.
+
+On a z slab (``mesh``, a ``parallel.mesh.SlabMesh``) an operator pads
+its operand with one ghost plane from each neighbour rank, runs on the
+padded slab and crops the ghost planes: the same values in the same
+order as on the whole grid.
 """
 
 from __future__ import annotations
@@ -47,8 +52,19 @@ def _d_minus(f, axis, step, bounds):
     return (f - shift(f, axis, -1, b)) / step
 
 
-def curl_positive(F, steps, bounds=(PERIODIC,) * 3):
+def _on_slab(op, F, steps, bounds, mesh):
+    """A one-hop operator on ``F``, through one ghost plane a side on a
+    slab."""
+    if mesh is None:
+        return op(F, steps, bounds)
+    out = op(mesh.halo_pad(F, 1, 1), steps, bounds)
+    return out.narrow(-3, 1, F.shape[-3])
+
+
+def curl_positive(F, steps, bounds=(PERIODIC,) * 3, mesh=None):
     """Forward-difference curl (rotE): edge-centered -> face-centered."""
+    if mesh is not None:
+        return _on_slab(curl_positive, F, steps, bounds, mesh)
     dx, dy, dz = steps
     Fx, Fy, Fz = F[0], F[1], F[2]
     cx = _d_plus(Fz, "y", dy, bounds) - _d_plus(Fy, "z", dz, bounds)
@@ -57,8 +73,10 @@ def curl_positive(F, steps, bounds=(PERIODIC,) * 3):
     return torch.stack([cx, cy, cz])
 
 
-def curl_negative(F, steps, bounds=(PERIODIC,) * 3):
+def curl_negative(F, steps, bounds=(PERIODIC,) * 3, mesh=None):
     """Backward-difference curl (rotB): face-centered -> edge-centered."""
+    if mesh is not None:
+        return _on_slab(curl_negative, F, steps, bounds, mesh)
     dx, dy, dz = steps
     Fx, Fy, Fz = F[0], F[1], F[2]
     cx = _d_minus(Fz, "y", dy, bounds) - _d_minus(Fy, "z", dz, bounds)
@@ -67,8 +85,10 @@ def curl_negative(F, steps, bounds=(PERIODIC,) * 3):
     return torch.stack([cx, cy, cz])
 
 
-def divergence_negative(F, steps, bounds=(PERIODIC,) * 3):
+def divergence_negative(F, steps, bounds=(PERIODIC,) * 3, mesh=None):
     """Backward-difference divergence: edge-centered field -> node scalar."""
+    if mesh is not None:
+        return _on_slab(divergence_negative, F, steps, bounds, mesh)
     dx, dy, dz = steps
     return (
         _d_minus(F[0], "x", dx, bounds)

@@ -24,6 +24,12 @@ its representation carries it, and only ``accumulate_mass``,
 ``matL_apply`` and ``matL_trace`` look at it.  The rebin takes the
 neighbor exchange for float32 and the global sort otherwise; the
 preconditioner is Chebyshev of degree 12.
+
+Every function here takes a slab ``geom`` of a run over a 1-D z mesh
+(``geom.mesh``, ``parallel/mesh.py``) as well: the ops pad, fold and
+reduce through the mesh, the trace of matL is summed over the ranks (so
+every rank's preconditioner takes the same shift), and the Krylov inner
+products are all-reduced.  On one rank nothing of that runs.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from ..particles import ParticleArrays
 from ..pushers import update_vEB
 from ..solvers import gmres
 from ..solvers.spectral import make_matM_preconditioner
+from .mesh import mesh_of, cells_global_of
 
 MASS_ROUTES = ("free", "blocks")
 
@@ -127,25 +134,28 @@ def advance_phase(E, B, B0, currI, mass, geom: Geometry, *, tol, maxit,
     warm-starts the solve with the delta predictor
     x0 = Ep_prev + (rhs - rhs_prev)/2; without it x0 = rhs/2."""
     dt = geom.dt
-    steps, bounds = geom.cell_steps, geom.bounds
+    steps, bounds, mesh = geom.cell_steps, geom.bounds, mesh_of(geom)
     half_dt2 = 0.5 * dt * dt
     trace = matL_trace(mass)
+    if mesh is not None:
+        trace = mesh.allreduce_sum(trace)
 
     def matA(x):
         y = 2.0 * x + half_dt2 * curl_negative(
-            curl_positive(x, steps, bounds), steps, bounds)
+            curl_positive(x, steps, bounds, mesh), steps, bounds, mesh)
         return y + matL_apply(mass, x, geom)
 
-    rhs = 2.0 * E - dt * currI + dt * curl_negative(B - B0, steps, bounds)
+    rhs = 2.0 * E - dt * currI + dt * curl_negative(B - B0, steps, bounds,
+                                                    mesh)
     P = make_matM_preconditioner(geom, dt)
-    shift = trace / (3.0 * geom.n_cells)
+    shift = trace / (3.0 * cells_global_of(geom))
     if prev is None:
         x0 = 0.5 * rhs
     else:
         Ep_p, rhs_p = prev
         x0 = Ep_p + 0.5 * (rhs - rhs_p)
     sol = gmres(matA, rhs, x0=x0, rtol=tol, atol=tol, maxit=maxit,
-                M_inv=lambda v: P(v, shift))
+                M_inv=lambda v: P(v, shift), mesh=mesh)
     return sol, rhs
 
 
@@ -181,7 +191,8 @@ def ecsim_step_binned(E, B, B0, st: BinnedState, geom: Geometry, q: float,
     st = push_phase(Ep, st, t, B_p, geom, qm=q / m)
 
     E_new = 2.0 * Ep - E
-    B_new = B - geom.dt * curl_positive(Ep, geom.cell_steps, geom.bounds)
+    B_new = B - geom.dt * curl_positive(Ep, geom.cell_steps, geom.bounds,
+                                        mesh_of(geom))
     if return_adv:
         return E_new, B_new, st, currI, sol.iterations, (Ep, rhs)
     return E_new, B_new, st, currI, sol.iterations
@@ -194,7 +205,9 @@ def ecsim_multi_step(E, B, B0, sp: ParticleArrays, geom: Geometry,
     """``n_steps`` ECSIM timesteps on the mass route
     ``mass_route(E.dtype, mass)``.  The species enters flat, runs binned
     and exits flat.  Returns ``(E, B, species, iterations)`` with the
-    per-step KSP iteration counts as an int64 tensor on the host."""
+    per-step KSP iteration counts as an int64 tensor on the host.  On a
+    slab ``geom`` the fields are the rank's slabs and the species its
+    particles (``convert.split_state``)."""
     mass = mass_route(E.dtype, mass)
     st = bin_state(sp, geom, slots)
     iters = []

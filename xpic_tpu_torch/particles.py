@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .config import PERIODIC, REFLECTIVE, Geometry, SortParameters
+from .parallel.mesh import z0_of, nz_global_of
 
 
 @dataclasses.dataclass
@@ -108,14 +109,26 @@ def cell_coords(r: torch.Tensor, geom: Geometry) -> torch.Tensor:
 
 def cell_ids(sp: ParticleArrays, geom: Geometry) -> torch.Tensor:
     """Flat cell id (z * ny + y) * nx + x per particle; dead particles
-    map to the overflow segment ``n_cells``."""
+    map to the overflow segment ``n_cells``.  On a z slab the id is the
+    slab's, and a particle outside the slab counts as dead."""
     c = cell_coords(sp.r, geom)
     cx = torch.clamp(c[:, 0], 0, geom.nx - 1)
     cy = torch.clamp(c[:, 1], 0, geom.ny - 1)
-    cz = torch.clamp(c[:, 2], 0, geom.nz - 1)
+    cz = torch.clamp(c[:, 2], 0, nz_global_of(geom) - 1) - z0_of(geom)
+    alive = sp.alive & (cz >= 0) & (cz < geom.nz)
     flat = (cz * geom.ny + cy) * geom.nx + cx
-    return torch.where(sp.alive, flat,
+    return torch.where(alive, flat,
                        torch.full_like(flat, geom.n_cells)).to(torch.int32)
+
+
+def in_slab(r: np.ndarray, geom: Geometry, dtype) -> np.ndarray:
+    """Host mask of the positions ``r`` [N, 3] (physical units) whose
+    cell lies in the z slab of ``geom``, by :func:`cell_ids`'s rule in
+    ``dtype``."""
+    z = torch.as_tensor(np.ascontiguousarray(r[:, 2])).to(dtype)
+    cz = torch.clamp(torch.floor(z / geom.dz).to(torch.int64), 0,
+                     nz_global_of(geom) - 1) - z0_of(geom)
+    return ((cz >= 0) & (cz < geom.nz)).numpy()
 
 
 def sort_by_cell(sp: ParticleArrays, geom: Geometry) -> ParticleArrays:

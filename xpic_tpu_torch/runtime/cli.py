@@ -6,6 +6,14 @@ with the dimensionless-units banner of ``Simulation::log_information``
 (src/interfaces/simulation.cpp:114-131).  The run goes to ``cuda:0``
 unless ``--device`` says otherwise; the dtype is float64 unless
 ``XPIC_X64=0`` (float32), on the card as on the CPU.
+
+``"Mesh": N`` runs over N ranks (``runtime/distributed.py``).  A process
+started as a rank of a group (``torchrun``, or the ``XPIC_*`` variables)
+joins it.  A single process starts the N ranks itself
+(``torch.multiprocessing``, ``spawn``), after building the kernels once,
+so that the ranks do not race on ``build/``; a rank that fails fails
+the run.  Rank r runs on ``cuda:(r % device_count)`` (``--device cpu``:
+the CPU, gloo), and only rank 0 writes.
 """
 
 from __future__ import annotations
@@ -42,10 +50,17 @@ def main(argv=None) -> int:
         help="override a config entry, e.g. --set Geometry.t=30",
     )
     parser.add_argument(
+        "--report", metavar="PATH", default=None,
+        help="write a JSON summary of the run to PATH (PATH.rank<r> for "
+             "each rank of a multi-rank run): KSP iterations, step times, "
+             "particle count, kernel launches and the mesh's traffic",
+    )
+    parser.add_argument(
         "--device", default=None,
         help="torch device to run on (default cuda:0; 'cpu' for the "
              "plain PyTorch path of the parity tests)",
     )
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
 
     logging.basicConfig(
@@ -54,8 +69,13 @@ def main(argv=None) -> int:
         format="%(message)s",
     )
 
+    import torch.distributed as dist
+
+    from .. import kernels
     from ..config import Config
+    from ..diagnostics.tables import is_writer
     from ..schemes import build_simulation
+    from . import distributed
 
     with open(args.config) as fh:
         doc = json.load(fh)
@@ -71,14 +91,31 @@ def main(argv=None) -> int:
             node = node.setdefault(key, {})
         node[keys[-1]] = value
     cfg = Config.from_json(doc)
-    simulation = build_simulation(cfg, device=args.device)
+    if cfg.n_devices > 1 and not dist.is_initialized():
+        group = distributed.launched_group()
+        if group is None:
+            return _spawn_ranks(cfg.n_devices, argv, args.device)
+        distributed.join(*group, device=args.device)
+        try:
+            return main(argv)
+        finally:
+            distributed.leave()
+    device = args.device
+    if dist.is_initialized():
+        device, _ = distributed.rank_device(dist.get_rank(),
+                                            dist.get_world_size(), device)
+        if not is_writer():
+            log.setLevel(logging.WARNING)
+    kernels.reset_counts()
+    simulation = build_simulation(cfg, device=device)
     if os.environ.get("XPIC_RNG") == "reference":
         from ..commands.particles_load import use_reference_rng
 
         use_reference_rng()
         log.info("Using the reference's exact mt19937 random stream")
-    os.makedirs(cfg.out_dir, exist_ok=True)
-    shutil.copy(args.config, os.path.join(cfg.out_dir, "config.json"))
+    if is_writer():
+        os.makedirs(cfg.out_dir, exist_ok=True)
+        shutil.copy(args.config, os.path.join(cfg.out_dir, "config.json"))
 
     g = cfg.geometry
     log.info("Note: Dimensionless units are used.")
@@ -107,6 +144,72 @@ def main(argv=None) -> int:
             simulation.calculate()
     finally:
         simulation.finalize()
+    if args.report:
+        write_report(args.report, simulation)
+    return 0
+
+
+def write_report(path: str, sim) -> None:
+    """The run's summary as one JSON object (``--report``)."""
+    import torch
+    import torch.distributed as dist
+
+    from .. import kernels
+    from . import distributed
+
+    mesh = sim.mesh
+    if sim.device.type == "cuda":
+        torch.cuda.synchronize(sim.device)
+    doc = {
+        "rank": mesh.rank, "world": mesh.world, "device": str(sim.device),
+        "dtype": str(sim.dtype).removeprefix("torch."),
+        "backend": dist.get_backend() if dist.is_initialized() else None,
+        "shared_card": distributed.rank_device(mesh.rank, mesh.world,
+                                               sim.device)[1],
+        "ksp_history": list(getattr(sim, "ksp_history", [])),
+        "step_s": list(sim.step_seconds),
+        "count": [sp.count() for sp in sim.species],
+        "launches": {k: v for k, v in kernels.LAUNCHES.items() if v},
+        "mesh": {"bytes_sent": mesh.bytes_sent, "seconds": mesh.seconds,
+                 "calls": dict(mesh.calls)},
+    }
+    if mesh.world > 1:
+        path = f"{path}.rank{mesh.rank}"
+    with open(path, "w") as fh:
+        json.dump(doc, fh)
+
+
+def _rank_main(rank: int, world: int, init_method: str, argv, device):
+    """One rank of a run that :func:`_spawn_ranks` started."""
+    from . import distributed
+
+    logging.basicConfig(
+        level=logging.WARNING if "--quiet" in argv else logging.INFO,
+        format="%(message)s")
+    distributed.join(init_method, rank, world, device=device)
+    try:
+        main(argv)
+    finally:
+        distributed.leave()
+
+
+def _spawn_ranks(world: int, argv, device) -> int:
+    """Start the ``world`` ranks of a ``"Mesh"`` run from this process and
+    wait for them; raises when a rank fails."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from . import distributed
+
+    if device is None or torch.device(device).type == "cuda":
+        from .. import kernels
+
+        distributed.rank_device(0, world, device)  # raises without a card
+        kernels.load()
+    init = f"tcp://127.0.0.1:{distributed.free_port()}"
+    log.info("Starting %d ranks (%s)", world, init)
+    mp.spawn(_rank_main, args=(world, init, argv, device), nprocs=world,
+             join=True)
     return 0
 
 

@@ -1,4 +1,4 @@
-"""Host-side simulation orchestration, single device
+"""Host-side simulation orchestration
 (counterpart of ``xpic_tpu/schemes/base.py``).
 
 Mirrors ``interfaces::Simulation`` (src/interfaces/simulation.cpp:16-112):
@@ -7,6 +7,15 @@ initialize -> build commands/diagnostics -> run presets -> main loop of
 physics lives in each scheme; everything here is glue that runs on the
 host between steps.  Fields and species live on one ``torch.device`` in
 one dtype, both fixed when the simulation is built.
+
+``"Mesh": N`` runs the ecsim scheme over N ranks of a process group, one
+z slab each (``parallel/mesh.py``): ``self.geom`` is the rank's slab,
+``self.cfg.geometry`` the whole grid's.  The host reads that decide
+anything (particle counts, the capacity check, the slot count K) are
+reduced over the ranks first, so every rank takes the same branch and
+grows K together.  A (z, y) or (z, y, x) mesh, the other schemes, and
+the commands and diagnostics not listed in ``MESH_SECTIONS`` are
+ROADMAP A11b and refused.
 """
 
 from __future__ import annotations
@@ -28,8 +37,21 @@ from ..ops.binning import (
     unbin_state,
 )
 from ..particles import ParticleArrays, make_empty
+from ..parallel.mesh import mesh_of
 
 log = logging.getLogger("xpic")
+
+# What a run over a z mesh takes from the config's sections.
+MESH_SECTIONS = {
+    "command": ("SetParticles", "SetMagneticField"),
+    "diagnostic": ("FieldView", "DistributionMoment"),
+}
+
+
+def _reduce_max(geom: Geometry, v: int) -> int:
+    mesh = mesh_of(geom)
+    return v if mesh is None else int(mesh.allreduce_max(
+        torch.tensor([v]))[0])
 
 
 class Species:
@@ -74,7 +96,7 @@ class Species:
     @property
     def state(self) -> BinnedState:
         if self._binned is None:
-            k = max_per_cell(self._flat, self.geom)
+            k = _reduce_max(self.geom, max_per_cell(self._flat, self.geom))
             # Headroom above the observed max load, so that the growth in
             # check_load can act before any drop can happen.
             slots = choose_slots(max(k, 1) + max(4, k // 8))
@@ -101,11 +123,16 @@ class Species:
         self._flat = None
 
     def count(self) -> int:
-        """Exact live count (one device-to-host read)."""
+        """Exact live count (one device-to-host read; over all ranks on a
+        slab)."""
         if self._binned is not None:
-            self.n = int(torch.sum(self._binned.valid))
+            n = torch.sum(self._binned.valid)
         else:
-            self.n = int(torch.sum(self._flat.alive))
+            n = torch.sum(self._flat.alive)
+        mesh = mesh_of(self.geom)
+        if mesh is not None:
+            n = mesh.allreduce_sum(n)
+        self.n = int(n)
         return self.n
 
     def log_distribution(self) -> None:
@@ -138,12 +165,30 @@ class Simulation:
 
     def __init__(self, cfg: Config, device: torch.device,
                  dtype: torch.dtype):
-        if cfg.n_devices > 1:
-            raise NotImplementedError(
-                f"the config requests {cfg.n_devices} devices; xpic_tpu_torch "
-                f"runs on one device (multi-GPU is ROADMAP A11)")
+        from ..parallel.mesh import SlabMesh, make_mesh, refuse
+
         self.cfg = cfg
-        self.geom: Geometry = cfg.geometry
+        g = cfg.geometry
+        if cfg.n_devices > 1:
+            if len(cfg.mesh_shape) > 1:
+                refuse(f'"Mesh" {dict(zip("zyx", cfg.mesh_shape))}')
+            if self.scheme_name != "ecsim":
+                refuse(f'the {self.scheme_name} scheme with "Mesh": '
+                       f"{cfg.n_devices}")
+            for kind, names in MESH_SECTIONS.items():
+                for info in (*cfg.presets, *cfg.step_presets,
+                             *cfg.diagnostics):
+                    name = info.get(kind)
+                    if name is not None and name not in names:
+                        refuse(f"the {kind} {name} with a mesh")
+            if cfg.backup:
+                refuse("SimulationBackup with a mesh")
+            self.mesh = make_mesh(cfg.mesh_shape, g.nz, g.bounds[2])
+            self.geom: Geometry = g.slab(self.mesh)
+        else:
+            # One rank: a mesh of one, which no op calls.
+            self.mesh = SlabMesh(0, 1, g.nz, True, None)
+            self.geom = g
         self.device = device
         self.dtype = dtype
         self.start = 0
@@ -151,6 +196,7 @@ class Simulation:
         self.diagnostics: list[Any] = []
         self.step_presets: list[Any] = []
         self.timings: dict[str, float] = {}
+        self.step_seconds: list[float] = []  # each step's host wall time
 
         g = self.geom
         shape = (3, g.nz, g.ny, g.nx)
@@ -202,6 +248,7 @@ class Simulation:
             self.timestep_implementation(t)
             t1 = time.perf_counter()
             self.timings = {"step": t1 - t0, "diagnostics": diag_prev}
+            self.step_seconds.append(t1 - t0)
             for diag in self.diagnostics:
                 diag.diagnose(t)
             t2 = time.perf_counter()
@@ -261,6 +308,10 @@ class Simulation:
         (its sd is ~sqrt(2 f n) for a fraction f of particles changing
         cell: ~4 at n = 90, f = 0.1), and the fixed margin drops
         particles at 32^3 x 50 ppc."""
+        mesh = mesh_of(self.geom)
+        if mesh is not None:
+            load = torch.cat([mesh.allreduce_max(load[:1]),
+                              mesh.allreduce_sum(load[1:])])
         vals = [int(v) for v in load.tolist()]
         max_load, dropped = vals[0], vals[1]
         sp.migrated = vals[2] if len(vals) > 2 else 0

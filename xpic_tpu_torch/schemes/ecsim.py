@@ -49,6 +49,7 @@ from ..parallel.step import (
     push_phase,
 )
 from .base import Simulation
+from ..parallel.mesh import mesh_of
 
 ATOL = 1e-7
 RTOL = 1e-7
@@ -145,8 +146,9 @@ class EcsimSimulation(Simulation):
     def final_update(self) -> None:
         E = self.E
         self.E = 2.0 * self.Ep - E
-        self.B = self.B - self.geom.dt * curl_positive(
-            self.Ep, self.geom.cell_steps, self.geom.bounds)
+        g = self.geom
+        self.B = self.B - g.dt * curl_positive(self.Ep, g.cell_steps,
+                                               g.bounds, mesh_of(g))
 
     def timestep_implementation(self, t: int) -> None:
         phases = [

@@ -26,8 +26,9 @@ class KrylovResult:
     converged: bool
 
 
-def _dot(a, b):
-    return torch.sum(a * b)
+def _dot(a, b, mesh=None):
+    d = torch.sum(a * b)
+    return d if mesh is None else mesh.allreduce_sum(d)
 
 
 def _np_dtype(t: torch.Tensor):
@@ -35,8 +36,8 @@ def _np_dtype(t: torch.Tensor):
 
 
 def cg(matvec: Callable, b, x0=None, *, rtol: float = 1e-7,
-       atol: float = 1e-7, maxit: int = 100, M_inv: Callable | None = None
-       ) -> KrylovResult:
+       atol: float = 1e-7, maxit: int = 100, M_inv: Callable | None = None,
+       mesh=None) -> KrylovResult:
     """(Preconditioned) conjugate gradient for SPD operators; converges
     on the true residual 2-norm."""
     x = torch.zeros_like(b) if x0 is None else x0
@@ -46,30 +47,35 @@ def cg(matvec: Callable, b, x0=None, *, rtol: float = 1e-7,
     r = b - matvec(x)
     z = M_inv(r)
     p = z
-    rz = _dot(r, z)
-    target = max(nd(rtol) * nd(torch.sqrt(_dot(b, b)).item()), nd(atol))
-    rnorm = nd(torch.sqrt(_dot(r, r)).item())
+    rz = _dot(r, z, mesh)
+    target = max(nd(rtol) * nd(torch.sqrt(_dot(b, b, mesh)).item()), nd(atol))
+    rnorm = nd(torch.sqrt(_dot(r, r, mesh)).item())
     it = 0
     while rnorm > target and it < maxit:
         Ap = matvec(p)
-        alpha = rz / _dot(p, Ap)
+        alpha = rz / _dot(p, Ap, mesh)
         x = x + alpha * p
         r = r - alpha * Ap
         z = M_inv(r)
-        rz_new = _dot(r, z)
+        rz_new = _dot(r, z, mesh)
         p = z + (rz_new / rz) * p
         rz = rz_new
         it += 1
-        rnorm = nd(torch.sqrt(_dot(r, r)).item())
+        rnorm = nd(torch.sqrt(_dot(r, r, mesh)).item())
     return KrylovResult(x, it, float(rnorm), bool(rnorm <= target))
 
 
-def _gmres_cycle(matvec, b, x0, m, target, nd):
+def _gmres_cycle(matvec, b, x0, m, target, nd, mesh=None):
     """One GMRES(m) cycle with CGS2 orthogonalisation and Givens QR;
     returns (x, rnorm, j)."""
     tiny = nd(np.finfo(nd).tiny * 1e4)
+
+    def proj(Vj, w):
+        h = Vj @ w
+        return h if mesh is None else mesh.allreduce_sum(h)
+
     r0 = b - matvec(x0)
-    beta_t = torch.sqrt(_dot(r0, r0))
+    beta_t = torch.sqrt(_dot(r0, r0, mesh))
     beta = nd(beta_t.item())
 
     V = torch.zeros((m + 1,) + tuple(b.shape), dtype=b.dtype,
@@ -87,11 +93,11 @@ def _gmres_cycle(matvec, b, x0, m, target, nd):
         w = matvec(V[j]).reshape(n)
         Vj = V[: j + 1].reshape(j + 1, n)
         # Re-orthogonalised classical Gram-Schmidt against V[0..j].
-        h1 = Vj @ w
+        h1 = proj(Vj, w)
         w = w - h1 @ Vj
-        h2 = Vj @ w
+        h2 = proj(Vj, w)
         w = w - h2 @ Vj
-        hnorm_t = torch.sqrt(_dot(w, w))
+        hnorm_t = torch.sqrt(_dot(w, w, mesh))
         V[j + 1] = (w / torch.clamp(hnorm_t, min=float(tiny))).reshape(
             b.shape)
         col = torch.cat([h1 + h2, hnorm_t[None]]).cpu().numpy().astype(nd)
@@ -133,7 +139,7 @@ def _gmres_cycle(matvec, b, x0, m, target, nd):
 
 def gmres(matvec: Callable, b, x0=None, *, rtol: float = 1e-7,
           atol: float = 1e-7, maxit: int = 100, restart: int = 30,
-          M_inv: Callable | None = None) -> KrylovResult:
+          M_inv: Callable | None = None, mesh=None) -> KrylovResult:
     """Restarted GMRES.  ``maxit`` counts total inner iterations.  With
     ``M_inv`` the solve is left-preconditioned and converges on the
     preconditioned residual norm (PETSc's defaults)."""
@@ -145,13 +151,14 @@ def gmres(matvec: Callable, b, x0=None, *, rtol: float = 1e-7,
         inner = matvec
         b_eff = b
     nd = _np_dtype(b)
-    bnorm = nd(torch.sqrt(_dot(b_eff, b_eff)).item())
+    bnorm = nd(torch.sqrt(_dot(b_eff, b_eff, mesh)).item())
     target = max(nd(rtol) * bnorm, nd(atol))
 
     r0 = b_eff - inner(x)
-    rnorm = nd(torch.sqrt(_dot(r0, r0)).item())
+    rnorm = nd(torch.sqrt(_dot(r0, r0, mesh)).item())
     it = 0
     while rnorm > target and it < maxit:
-        x, rnorm, j = _gmres_cycle(inner, b_eff, x, restart, target, nd)
+        x, rnorm, j = _gmres_cycle(inner, b_eff, x, restart, target, nd,
+                                   mesh)
         it += j
     return KrylovResult(x, it, float(rnorm), bool(rnorm <= target))
