@@ -134,7 +134,22 @@ Phases:
     within 1e-4 of phase 6's one-rank run, the energy identity within
     1e-4, no particle dropped), float32 ``blocks`` (against a one-rank
     ``blocks`` run), and float64 at 16^3 x 20 ppc (tables within 1e-9,
-    equal iterations): every rank launches each kernel of its route.
+    equal iterations): every rank launches each kernel of its route;
+20. ecsimcorr (both mass routes), ``basic`` (without its backup: a
+    backup over ranks is ROADMAP A11b) and eccapfim over two ranks that
+    share the card, at 32^3 x 50 ppc in float32 (1 + 2 steps, ``basic``
+    1 + 3) and 16^3 x 20 ppc in float64 (1 + 2 steps): each config's
+    one-rank run on the card, then one spawn of two ranks that run
+    ``runtime.cli.main`` on every ``"Mesh": 2`` config as ranks of one
+    group (each step timed, its bytes, exchange ms and collectives
+    counted; each rank's ``--report`` printed): tables within 1e-4
+    (float32) and 1e-9 (float64) of each column's scale of the one-rank
+    run, the solvers' iterations equal (within one a step in float32),
+    every particle kept, each kernel of the run launched on each rank;
+    then on each rank K6 on its slab's window blocks (seeded 32^3
+    fields, K' = 32 moves of up to 0.9 cell) in float32 and float64:
+    the windows and K6 bitwise the whole grid's rows, K6 within phase
+    3's tolerance of its twin, timed.
 
 Phase 3 also holds the segment-field kernel against its twin on the
 drifted 32^3 x 50 ppc state (K = 96) with moves of up to 0.9 cell a
@@ -158,7 +173,9 @@ the four float64 entry points as rows of their own (``cheb_step_f64``,
 the eccapfim path, the two ecsimcorr runs, the calibration path, the
 ``basic`` path (``launches_basic``) and each float64 path of phase 17
 (``launches_f64_<path>``), its launches over phase 19's mesh runs,
-both ranks (``launches_mesh2``), and the slab form of K1 as rows of its
+both ranks (``launches_mesh2``), its launches over each run of phase
+20, both ranks (``launches_mesh2_<run>``), K6 on a slab under its rows'
+``slab`` key, and the slab form of K1 as rows of its
 own (``cheb_sweep``, ``cheb_sweep_f64``: a sweep's times, an apply's in
 ``apply_ms``), its error against its twin, its times
 (``ms``, ``call_ms``), its twin's and its bound; the float64 rows also
@@ -229,6 +246,11 @@ F64_TOL = 1e-12
 # table column's scale; the energy identity of ECSIM and ecsimcorr
 # within 1e-6 of the total energy.
 F64_STEPS, F64_TABLE_TOL, F64_ENERGY_TOL = 2, 1e-9, 1e-6
+# The environment of a float32 run and of a float64 run (the schemes'
+# default dtype: XPIC_X64 unset, as a user's first command has it); None
+# unsets a variable (``run_env``).
+F32_ENV = {"XPIC_X64": "0", "XPIC_MASS": None}
+F64_ENV = {"XPIC_X64": None, "XPIC_MASS": None}
 KERNELS = {
     # name: (source, replaces)
     "cheb_step": ("xpic_tpu_torch/csrc/cheb_step.cu",
@@ -665,14 +687,14 @@ def main() -> None:
         log(f"[11 card vs cpu, ecsimcorr blocks] 8^3 x 20 ppc f32, 2 steps: "
             f"worst column per table {worst} (tol {TABLE_TOL}); predict KSP "
             f"card {sim_g.ksp_history} cpu {sim_c.ksp_history}; correct KSP "
-            f"card {sim_g.correct_history} cpu {sim_c.correct_history}")
+            f"card {sim_g.correct_ksp_history} cpu {sim_c.correct_ksp_history}")
         check(all(lg[k] > 0 for k in CORR_KERNELS["blocks"])
               and not any(lc.values()),
               f"routing: card launches {lg}, CPU launches {lc}")
         check(all(e <= TABLE_TOL for _, e in worst.values()),
               "ecsimcorr card tables differ from the CPU's")
         check(sim_g.ksp_history == sim_c.ksp_history
-              and sim_g.correct_history == sim_c.correct_history,
+              and sim_g.correct_ksp_history == sim_c.correct_ksp_history,
               "ecsimcorr KSP iterations differ between card and CPU")
     del os.environ["XPIC_MASS"]
 
@@ -713,6 +735,11 @@ def main() -> None:
                   if k in kernels.SIGNATURES)
     report["rebin_place"]["zghost"] = mesh_rows["rebin_place_zghost"]
 
+    # -- 20. ecsimcorr, basic and eccapfim over two ranks ------------------
+    scheme_launches, k6_rows = mesh_schemes_path(name, card)
+    report["segment_fields"]["slab"] = k6_rows["float32"]
+    report["segment_fields_f64"]["slab"] = k6_rows["float64"]
+
     if "--profile" in sys.argv[1:]:
         profile_paths(name, card, dev, lambda: ecsim_multi_step(
             E, B, B0, sp, geom, slots, n_steps=2, **KW))
@@ -739,6 +766,8 @@ def main() -> None:
                    launches_probe=cal_launches[kname],
                    launches_basic=basic_launches[kname],
                    launches_mesh2=mesh_launches.get(kname, 0),
+                   **{f"launches_mesh2_{run}": n.get(kname, 0)
+                      for run, n in scheme_launches.items()},
                    library_ms=None,
                    **{f"launches_f64_{path}": n[kname]
                       for path, n in f64_launches.items()})
@@ -1301,16 +1330,23 @@ def gather_kernel(geom, dev, card, ks, dtype):
 
 
 @contextlib.contextmanager
-def float64_runs():
-    """The runs inside take the schemes' default dtype, float64:
-    ``XPIC_X64`` unset, as a user's first command has it, and put back
+def run_env(env):
+    """Set (or, for None, unset) the variables of ``env`` inside; put back
     after."""
-    saved = os.environ.pop("XPIC_X64", None)
+    saved = {k: os.environ.get(k) for k in env}
     try:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
         yield
     finally:
-        if saved is not None:
-            os.environ["XPIC_X64"] = saved
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def f64_launch_gate(path, launches):
@@ -1348,7 +1384,7 @@ def f64_paths(name, card, dev, geom):
     docs = {"cli": cli_config, "ecsimcorr": ecsimcorr_config,
             "eccapfim": eccapfim_config, "basic": basic_config}
     steps = F64_STEPS + 1
-    with float64_runs(), tempfile.TemporaryDirectory(
+    with run_env(F64_ENV), tempfile.TemporaryDirectory(
             prefix="xpic_smoke_") as work:
         for path, doc in docs.items():
             out, sim, step_ms, launches[path] = run_cli(
@@ -1363,7 +1399,7 @@ def f64_paths(name, card, dev, geom):
             closure = np.abs(ec[:, h_ec.index("dE+dB+dK")])
             dt = BASIC_DT if path == "basic" else 1.5
             iters = {"ksp": getattr(sim, "ksp_history", None),
-                     "correct": sim.correct_history or None,
+                     "correct": getattr(sim, "correct_ksp_history", None),
                      "outer": getattr(sim, "outer_history", None),
                      "cn": getattr(sim, "cn_history", None)}
             iters = {k: list(v) for k, v in iters.items() if v}
@@ -1454,7 +1490,7 @@ def f64_card_vs_cpu(card):
     cases = (("cli", cli_config, 16), ("basic", basic_config, 16),
              ("eccapfim", eccapfim_config, 8),
              ("ecsimcorr", ecsimcorr_config, 8))
-    with float64_runs(), tempfile.TemporaryDirectory(
+    with run_env(F64_ENV), tempfile.TemporaryDirectory(
             prefix="xpic_smoke_") as work:
         for path, doc, side in cases:
             runs = {}
@@ -1477,7 +1513,7 @@ def f64_card_vs_cpu(card):
                                     **extra)
                 worst[table] = max(errs.items(), key=lambda kv: kv[1])
             hists = {k: (getattr(sim_g, k), getattr(sim_c, k))
-                     for k in ("ksp_history", "correct_history",
+                     for k in ("ksp_history", "correct_ksp_history",
                                "outer_history", "cn_history",
                                "count_history")
                      if getattr(sim_g, k, None)}
@@ -1751,9 +1787,9 @@ def run_cli(work, side, ppc, steps, device, doc=None):
     each step's time in ms (closed by a device synchronisation) and the
     kernel launches of the run (counts set to 0 just before it).  The
     simulation records each species' live count after every step
-    (``count_history``); an ecsimcorr simulation also each step's
-    correct-solve iterations and consistency norm (``correct_history``,
-    ``norm_history``)."""
+    (``count_history``); an ecsimcorr simulation records each step's
+    correct-solve iterations and consistency norm itself
+    (``correct_ksp_history``, ``consistency_history``)."""
     from xpic_tpu_torch import kernels
     from xpic_tpu_torch import schemes
     from xpic_tpu_torch.commands import particles_load
@@ -1780,11 +1816,7 @@ def run_cli(work, side, ppc, steps, device, doc=None):
             sync()
             step_ms.append((time.perf_counter() - t0) * 1e3)
             sim.count_history.append([sp.count() for sp in sim.species])
-            if sim.scheme_name == "ecsimcorr":
-                sim.correct_history.append(sim.correct_ksp_iters)
-                sim.norm_history.append(sim.current_consistency_norm)
 
-        sim.correct_history, sim.norm_history = [], []
         sim.count_history = []
         sim.timestep_implementation = timed_step
         built.append(sim)
@@ -1906,8 +1938,8 @@ def check_ecsimcorr_run(mass, out, sim, launches, name, card, step_ms):
         f"{n} particles: ms/step median {ms:.3f} (per step "
         f"{[round(v, 3) for v in step_ms]}, the first a warm-up), "
         f"particle_steps_per_s={n / ms * 1e3:.4e}, predict KSP "
-        f"{sim.ksp_history}, correct KSP {sim.correct_history}, consistency "
-        f"norm {sim.norm_history} (tol 0.1), charge continuity / (rho/dt) "
+        f"{sim.ksp_history}, correct KSP {sim.correct_ksp_history}, consistency "
+        f"norm {sim.consistency_history} (tol 0.1), charge continuity / (rho/dt) "
         f"{charge:.3e} (tol {CHARGE_TOL}), launches {launches} | {name} | "
         f"{card}")
     other = "mass_apply" if mass == "blocks" else "ecsim_fill"
@@ -1917,11 +1949,11 @@ def check_ecsimcorr_run(mass, out, sim, launches, name, card, step_ms):
     check(all(np.isfinite(rows).all() and rows.shape[0] == CORR_STEPS + 2
               for _, rows in tables.values()), "a table row is not finite")
     check(sim.ksp_history == ITERS["ecsimcorr predict"]
-          and sim.correct_history == ITERS["ecsimcorr correct"],
-          f"KSP iterations {sim.ksp_history} {sim.correct_history}, not "
+          and sim.correct_ksp_history == ITERS["ecsimcorr correct"],
+          f"KSP iterations {sim.ksp_history} {sim.correct_ksp_history}, not "
           f"{ITERS['ecsimcorr predict']} {ITERS['ecsimcorr correct']}")
-    check(all(0.0 <= v < 0.1 for v in sim.norm_history),
-          f"current-consistency norms {sim.norm_history}")
+    check(all(0.0 <= v < 0.1 for v in sim.consistency_history),
+          f"current-consistency norms {sim.consistency_history}")
     check(charge <= CHARGE_TOL, "ecsimcorr does not conserve charge")
 
 
@@ -2213,6 +2245,8 @@ def cell_multisets(sp, geom):
 MESH = 2
 MESH_STEPS = 10  # fused steps on phase 4's state, after one warm-up step
 MESH_F64_SIDE, MESH_F64_PPC, MESH_F64_STEPS = 16, 20, 2
+# The ranks' time limits: the join and each collective, and the spawn.
+MESH_RANK_TIMEOUT_S, MESH_DEADLINE_S = 300, 900
 # Every rank's kernels on each mesh path; the float32 routes' and the
 # float64 route's (blocks, the global sort: no K2, K3 or K4).
 MESH_KERNELS = {
@@ -2452,7 +2486,7 @@ def _mesh_rank(rank, init, work):
     from xpic_tpu_torch.parallel.mesh import make_mesh
     from xpic_tpu_torch.runtime import distributed
 
-    info = distributed.join(init, rank, MESH)
+    info = distributed.join(init, rank, MESH, timeout=MESH_RANK_TIMEOUT_S)
     try:
         kernels.load()
         geom = Geometry(dx=0.5, dy=0.5, dz=0.5, dt=1.5, nx=SIDE, ny=SIDE,
@@ -2518,10 +2552,7 @@ def mesh_path(name, card, cli_one_out, cli_one_ksp):
     """Phase 19: the ECSIM path over two ranks that share the card.
     Returns the kernels' launches on the mesh paths (both ranks, every
     run) and the rows of K1's slab form."""
-    import torch.multiprocessing as mp
-
     from xpic_tpu_torch.diagnostics.compare import read_table
-    from xpic_tpu_torch.runtime.distributed import free_port
 
     rcs, said = nccl_probe()
     log(f"[19 mesh] NCCL, two ranks on cuda:0: exit codes {rcs}, "
@@ -2534,8 +2565,7 @@ def mesh_path(name, card, cli_one_out, cli_one_ksp):
 
     with tempfile.TemporaryDirectory(prefix="xpic_smoke_") as work:
         t0 = time.perf_counter()
-        mp.spawn(_mesh_rank, args=(f"tcp://127.0.0.1:{free_port()}", work),
-                 nprocs=MESH, join=True)
+        _spawn_ranks(_mesh_rank, (work,), MESH_DEADLINE_S)
         ranks = []
         for r in range(MESH):
             with open(os.path.join(work, f"rank{r}.json")) as fh:
@@ -2646,7 +2676,7 @@ def mesh_path(name, card, cli_one_out, cli_one_ksp):
         _mesh_launch_gate("blocks", reps, "cli f32 blocks")
 
         # float64 (blocks, the global sort): one rank and two, 16^3
-        with float64_runs():
+        with run_env(F64_ENV):
             one, sim, _, _ = run_cli(os.path.join(work, "f64one"),
                                      MESH_F64_SIDE, MESH_F64_PPC,
                                      MESH_F64_STEPS, "cuda:0")
@@ -2667,6 +2697,329 @@ def mesh_path(name, card, cli_one_out, cli_one_ksp):
             for k in ("cheb_sweep", "cheb_sweep_f64")}
     rows["rebin_place_zghost"] = ranks[0]["k3"]
     return total, rows
+
+
+# -- phase 20: ecsimcorr, basic and eccapfim over two ranks sharing the card --
+# Each run: (scheme, side, ppc, steps with the warm-up step, environment).
+# The float32 runs at 32^3 x 50 ppc (16 x 32 x 32 slabs), the float64 ones
+# at 16^3 x 20 ppc.  SimulationBackup over ranks is ROADMAP A11b, so the
+# basic runs drop phase 13's backup.
+MESH_RUNS = {
+    "ecsimcorr_free": ("ecsimcorr", SIDE, PPC, 3,
+                       dict(F32_ENV, XPIC_MASS="free")),
+    "ecsimcorr_blocks": ("ecsimcorr", SIDE, PPC, 3,
+                         dict(F32_ENV, XPIC_MASS="blocks")),
+    "basic": ("basic", SIDE, PPC, 4, F32_ENV),
+    "eccapfim": ("eccapfim", SIDE, PPC, 3, F32_ENV),
+    "f64_ecsimcorr": ("ecsimcorr", MESH_F64_SIDE, MESH_F64_PPC, 3, F64_ENV),
+    "f64_basic": ("basic", MESH_F64_SIDE, MESH_F64_PPC, 3, F64_ENV),
+    "f64_eccapfim": ("eccapfim", MESH_F64_SIDE, MESH_F64_PPC, 3, F64_ENV),
+}
+# Every rank's kernels on each run (float64: no K2 or K3; basic f64: none).
+MESH_RUN_KERNELS = {
+    "ecsimcorr_free": MESH_KERNELS["free"],
+    "ecsimcorr_blocks": MESH_KERNELS["blocks"],
+    "basic": BASIC_KERNELS,
+    "eccapfim": ("cheb_sweep", "rebin_extract", "rebin_place",
+                 "segment_fields"),
+    "f64_ecsimcorr": MESH_KERNELS["f64"],
+    "f64_basic": (),
+    "f64_eccapfim": ("cheb_sweep_f64", "segment_fields_f64"),
+}
+
+
+def basic_mesh_config(out_dir, side, ppc, steps):
+    doc = basic_config(out_dir, side, ppc, steps)
+    del doc["SimulationBackup"]
+    return doc
+
+
+def mesh_run_config(scheme):
+    from xpic_tpu_torch.benchmarks.turns import eccapfim_config
+
+    return {"ecsimcorr": ecsimcorr_config, "basic": basic_mesh_config,
+            "eccapfim": eccapfim_config}[scheme]
+
+
+def _mesh_k6(geom, mesh):
+    """K6 on this rank's slab: seeded E and B on the 32^3 grid, cell-
+    relative moves of up to 0.9 cell a axis at K' = 32 (rows of slots at
+    rest); the slab's window blocks (through the ghost planes) bitwise
+    the whole grid's rows, K6 on them within phase 3's tolerance of its
+    twin and bitwise the rows of K6 on the whole grid, timed while the
+    other rank waits (the two share the card); float32 and float64."""
+    import torch.distributed as dist
+
+    from xpic_tpu_torch.benchmarks import call_ms, device_ms
+    from xpic_tpu_torch.ops.implicit_esirkepov import gather_window_blocks
+    from xpic_tpu_torch.ops.segment_kernel import (
+        FLOPS_PER_SEGMENT,
+        live_segments,
+        segment_fields,
+        segment_fields_plain,
+    )
+
+    dev = torch.device("cuda", 0)
+    sgeom = geom.slab(mesh)
+    rng = np.random.default_rng(21)
+    shape = (3,) + geom.shape
+    E, B = (torch.tensor(0.1 * rng.standard_normal(shape),
+                         dtype=torch.float32, device=dev) for _ in range(2))
+    kp = 32
+    t0 = torch.tensor(rng.random((geom.n_cells, kp, 3)), dtype=torch.float32,
+                      device=dev)
+    move = torch.tensor(rng.uniform(-0.9, 0.9, tuple(t0.shape)),
+                        dtype=torch.float32, device=dev)
+    move[:, :4] = 0.0
+    tn = t0 + move
+    n, G = sgeom.nz, sgeom.n_cells
+    rows = slice(mesh.rank * G, (mesh.rank + 1) * G)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        Ew = gather_window_blocks(E.to(dtype), geom)
+        Bw = gather_window_blocks(B.to(dtype), geom)
+        Es = gather_window_blocks(E[:, mesh.z0:mesh.z0 + n].to(dtype),
+                                  sgeom)
+        Bs = gather_window_blocks(B[:, mesh.z0:mesh.z0 + n].to(dtype),
+                                  sgeom)
+        a, b = t0[rows].to(dtype), tn[rows].to(dtype)
+        E_k, B_k = segment_fields(Es, Bs, a, b)
+        E_w, B_w = segment_fields(Ew, Bw, t0.to(dtype), tn.to(dtype))
+        E_p, B_p = segment_fields_plain(Es, Bs, a, b)
+        torch.cuda.synchronize()
+        rel = max(float((E_k - E_p).abs().max() / E_p.abs().max()),
+                  float((B_k - B_p).abs().max() / B_p.abs().max()))
+        segs = live_segments(a, b)
+        f64 = dtype == torch.float64
+        for r in range(mesh.world):
+            dist.barrier()
+            if r == mesh.rank:
+                times = dict(
+                    ms=device_ms(lambda: segment_fields(Es, Bs, a, b), dev),
+                    call_ms=call_ms(lambda: segment_fields(Es, Bs, a, b),
+                                    dev),
+                    plain_ms=device_ms(
+                        lambda: segment_fields_plain(Es, Bs, a, b), dev))
+        dist.barrier()
+        out[str(dtype).removeprefix("torch.")] = dict(
+            cells=G, kp=kp, segments_per_slot=segs / (G * kp),
+            windows_bitwise=bool(torch.equal(Es, Ew[rows])
+                                 and torch.equal(Bs, Bw[rows])),
+            bitwise_whole=bool(torch.equal(E_k, E_w[rows])
+                               and torch.equal(B_k, B_w[rows])),
+            max_abs_err=max(float((E_k - E_p).abs().max()),
+                            float((B_k - B_p).abs().max())),
+            rel_err=rel, **times,
+            **bound(Es.element_size() * (2 * G * 648 + 4 * G * kp * 3),
+                    FLOPS_PER_SEGMENT * segs,
+                    F64_FLOPS if f64 else F32_FLOPS),
+            library_ms=None)
+    return out
+
+
+def _scheme_rank(rank, init, work):
+    """One rank of phase 20: ``runtime.cli.main`` on each run's
+    ``"Mesh": 2`` config as a rank of the group (a launched group, as
+    under ``torchrun``), each step timed and its collectives counted,
+    then K6 on the slab; what it finds goes to ``work/rank<r>.json``."""
+    from xpic_tpu_torch import kernels, schemes
+    from xpic_tpu_torch.commands import particles_load
+    from xpic_tpu_torch.config import Geometry
+    from xpic_tpu_torch.parallel.mesh import make_mesh
+    from xpic_tpu_torch.runtime import cli, distributed
+
+    distributed.join(init, rank, MESH, timeout=MESH_RANK_TIMEOUT_S)
+    try:
+        kernels.load()
+        res = {"rank": rank, "runs": {}}
+        build = schemes.build_simulation
+        for name, (_, _, _, _, env) in MESH_RUNS.items():
+            steps = []
+
+            def timed_build(*args, **kwargs):
+                sim = build(*args, **kwargs)
+                step, mesh = sim.timestep_implementation, sim.mesh
+
+                def timed_step(t):
+                    torch.cuda.synchronize()
+                    b0, s0 = mesh.bytes_sent, mesh.seconds
+                    c0 = dict(mesh.calls)
+                    t0 = time.perf_counter()
+                    step(t)
+                    torch.cuda.synchronize()
+                    steps.append(dict(
+                        ms=(time.perf_counter() - t0) * 1e3,
+                        bytes=mesh.bytes_sent - b0,
+                        exchange_ms=(mesh.seconds - s0) * 1e3,
+                        calls={k: v - c0.get(k, 0)
+                               for k, v in mesh.calls.items()
+                               if v - c0.get(k, 0)}))
+
+                sim.timestep_implementation = timed_step
+                return sim
+
+            rep = os.path.join(work, name, "report.json")
+            schemes.build_simulation = timed_build
+            particles_load.seed(5489)
+            try:
+                with run_env(env):
+                    rc = cli.main([os.path.join(work, name, "cfg.json"),
+                                   "--quiet", "--report", rep])
+            finally:
+                schemes.build_simulation = build
+            if rc != 0:
+                raise RuntimeError(f"{name}: cli.main returned {rc}")
+            res["runs"][name] = steps
+        geom = Geometry(dx=0.5, dy=0.5, dz=0.5, dt=1.5, nx=SIDE, ny=SIDE,
+                        nz=SIDE, nt=1)
+        res["k6"] = _mesh_k6(geom, make_mesh(MESH, SIDE))
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as fh:
+            json.dump(res, fh)
+    finally:
+        distributed.leave()
+
+
+def _spawn_ranks(fn, args, deadline):
+    """Start the ``MESH`` ranks of ``fn(rank, init, *args)``, wait at most
+    ``deadline`` seconds; fail when a rank fails or the time is up (the
+    ranks are killed then)."""
+    import torch.multiprocessing as mp
+
+    from xpic_tpu_torch.runtime.distributed import free_port
+
+    init = f"tcp://127.0.0.1:{free_port()}"
+    ctx = mp.start_processes(fn, args=(init, *args), nprocs=MESH,
+                             join=False, start_method="spawn")
+    end = time.monotonic() + deadline
+    while not ctx.join(timeout=max(1.0, end - time.monotonic())):
+        if time.monotonic() >= end:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+            check(False, f"the ranks ran past {deadline} s")
+
+
+def mesh_schemes_path(name, card):
+    """Phase 20: ecsimcorr (both mass routes), basic and eccapfim over two
+    ranks that share the card, each against a one-rank run of the same
+    config at the same depth, then K6 on each rank's slab.  Returns each
+    run's kernel launches (both ranks) and K6's slab rows."""
+    from xpic_tpu_torch.diagnostics.compare import TABLES, table_errors
+
+    one = {}
+    with tempfile.TemporaryDirectory(prefix="xpic_smoke_") as work:
+        t0 = time.perf_counter()
+        for run, (scheme, side, ppc, steps, env) in MESH_RUNS.items():
+            doc = mesh_run_config(scheme)
+            with run_env(env):
+                out, sim, step_ms, _ = run_cli(
+                    os.path.join(work, run, "one"), side, ppc, steps,
+                    "cuda:0", doc=doc)
+            one[run] = dict(
+                out=out, ms=statistics.median(step_ms[1:]),
+                ksp=list(getattr(sim, "ksp_history", [])),
+                correct=list(getattr(sim, "correct_ksp_history", [])),
+                outer=list(getattr(sim, "outer_history", [])),
+                count=sim.count_history[-1])
+            os.makedirs(os.path.join(work, run), exist_ok=True)
+            with open(os.path.join(work, run, "cfg.json"), "w") as fh:
+                json.dump(dict(doc(os.path.join(work, run, "out"), side,
+                                   ppc, steps), Mesh=MESH), fh)
+        one_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _spawn_ranks(_scheme_rank, (work,), MESH_DEADLINE_S)
+        ranks = []
+        for r in range(MESH):
+            with open(os.path.join(work, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+        log(f"[20 mesh schemes] one-rank runs in {one_s:.1f} s; the two "
+            f"ranks' runs and K6 checks in {time.perf_counter() - t0:.1f} s")
+        launches = {}
+        for run, (scheme, side, ppc, steps, env) in MESH_RUNS.items():
+            f64 = run.startswith("f64")
+            tol = F64_TABLE_TOL if f64 else TABLE_TOL
+            ref = one[run]
+            charge = np.sqrt(side ** 3) / (BASIC_DT if scheme == "basic"
+                                           else 1.5)
+            worst = {}
+            for table in TABLES:
+                errs = table_errors(
+                    table, ref["out"], os.path.join(work, run, "out"),
+                    n_cells=side ** 3, charge_scale=charge,
+                    dt=BASIC_DT if scheme == "basic" else 0.0)
+                worst[table] = max(errs.items(), key=lambda kv: kv[1])
+            label = (f"{run} {side}^3 x {ppc} ppc "
+                     f"{'f64' if f64 else 'f32'}, 1 + {steps - 1} steps")
+            log(f"[20 mesh schemes] {label}: 2 ranks against 1, worst "
+                f"column per table {worst} (tol {tol}); one rank "
+                f"{ref['ms']:.3f} ms a step (median after the warm-up)")
+            check(all(e <= tol for _, e in worst.values()),
+                  f"{label}: the 2-rank tables differ from the one-rank "
+                  f"run's")
+            total = {}
+            for r in ranks:
+                with open(os.path.join(work, run,
+                                       f"report.json.rank{r['rank']}")) as fh:
+                    rep = json.load(fh)
+                timed = r["runs"][run][1:]
+                calls = {}
+                for st in timed:
+                    for k, v in st["calls"].items():
+                        calls[k] = calls.get(k, 0) + v / len(timed)
+                hist = {"ksp": rep["ksp_history"],
+                        "correct": rep.get("correct_ksp_history", []),
+                        "outer": rep.get("outer_history", [])}
+                log(f"[20 mesh schemes] {label} rank {rep['rank']}: "
+                    f"{rep['device']} {rep['backend']}, ranks share a card "
+                    f"{rep['shared_card']}; ms a step "
+                    f"{statistics.median(s['ms'] for s in timed):.3f} "
+                    f"(per step {[round(s['ms'], 3) for s in r['runs'][run]]}"
+                    f", the first a warm-up), exchange ms a step "
+                    f"{statistics.median(s['exchange_ms'] for s in timed):.3f}"
+                    f", bytes sent a step "
+                    f"{statistics.median(s['bytes'] for s in timed):.0f}, "
+                    f"collectives a step {sum(calls.values()):.1f} "
+                    f"{ {k: round(v, 1) for k, v in calls.items()} }; "
+                    f"iterations {hist} (one rank ksp {ref['ksp']}, correct "
+                    f"{ref['correct']}, outer {ref['outer']}); particles "
+                    f"{rep['count']}; launches {rep['launches']} | {card}")
+                for key in ("ksp", "correct", "outer"):
+                    a, b = hist[key], ref[key]
+                    check(len(a) == len(b) and all(
+                        abs(x - y) <= (0 if f64 else 1)
+                        for x, y in zip(a, b)),
+                          f"{label}: {key} iterations {a} against one "
+                          f"rank's {b}")
+                check(rep["count"] == [side ** 3 * ppc] == ref["count"],
+                      f"{label}: particles {rep['count']} of "
+                      f"{side ** 3 * ppc}")
+                got = rep["launches"]
+                check(all(got.get(k, 0) > 0 for k in MESH_RUN_KERNELS[run]),
+                      f"{label}: rank {rep['rank']} launched {got}, not "
+                      f"every one of {MESH_RUN_KERNELS[run]}")
+                for k, v in got.items():
+                    total[k] = total.get(k, 0) + v
+            launches[run] = total
+    k6 = {}
+    for dtype, tol in (("float32", SEGMENT_TOL), ("float64", F64_TOL)):
+        for r in ranks:
+            row = r["k6"][dtype]
+            log(f"[20 mesh schemes] rank {r['rank']} K6 {dtype} on its "
+                f"{row['cells']}-cell slab, K'={row['kp']} "
+                f"({row['segments_per_slot']:.3f} live segments a slot): "
+                f"window blocks bitwise the whole grid's rows "
+                f"{row['windows_bitwise']}, K6 bitwise the whole-grid "
+                f"K6's rows {row['bitwise_whole']}, max|d|/max "
+                f"{row['rel_err']:.3e} against its twin (tol {tol}); "
+                f"{row['ms']:.4f} ms (call {row['call_ms']:.4f}) vs twin "
+                f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} "
+                f"({row['bound_by']}) | {card}")
+            check(row["windows_bitwise"] and row["bitwise_whole"],
+                  f"K6 {dtype} on a slab differs from the whole grid's rows")
+            check(row["rel_err"] <= tol,
+                  f"K6 {dtype} on a slab differs from its twin")
+        k6[dtype] = ranks[0]["k6"][dtype]
+    return launches, k6
 
 
 if __name__ == "__main__":

@@ -15,7 +15,8 @@ same numpy inputs.
   column within 1e-9 of its scale (``diagnostics.compare``), equal
   Crank-Nicolson and outer iteration counts, the residual histories to
   1e-6 of each row's first entry, the step-0 dumps byte for byte.  The
-  JAX run, which is most of this file's time, happens once.
+  JAX run, which is most of this file's time, happens once a test run
+  (``torch_shared_fixture.build_once``).
 * Port-only: the crosser fast path equals the general path, the
   fast-path and fast-particle guards fire, the remaining pushers keep the
   JAX suite's invariants (``tests/test_pushers.py``), and the entry point
@@ -57,6 +58,8 @@ from xpic_tpu_torch.runtime import step_profile
 from xpic_tpu_torch.schemes import build_simulation
 from xpic_tpu_torch.schemes import eccapfim as tecc
 from xpic_tpu_torch.solvers import anderson_solve
+
+from torch_shared_fixture import build_once, load_sims, save_sims
 
 torch.set_num_threads(1)
 
@@ -311,12 +314,25 @@ def _run(cli, schemes, root, argv):
     return root / "out", built[0]
 
 
+def _build_runs(root):
+    """Both packages' runs into ``root/<name>/out``, and the port's outer
+    iterations into ``root/sims.json``."""
+    sims = {}
+    for name, cli, schemes, argv in (
+            ("jax", jcli, jschemes, []),
+            ("torch", tcli, tschemes, ["--device", "cpu"])):
+        (root / name).mkdir()
+        sims[name] = _run(cli, schemes, root / name, argv)[1]
+    save_sims(root / "sims.json", sims, ("outer_history",))
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    return {name: _run(cli, schemes, tmp_path_factory.mktemp(name), argv)
-            for name, cli, schemes, argv in (
-                ("jax", jcli, jschemes, []),
-                ("torch", tcli, tschemes, ["--device", "cpu"]))}
+    """Built once per test run, whatever the number of xdist workers
+    (``tests/test_torch_mesh_schemes.py`` reads it too)."""
+    root = build_once(tmp_path_factory, "torch_eccapfim_runs", _build_runs)
+    sims = load_sims(root / "sims.json")
+    return {name: (root / name / "out", sims[name]) for name in sims}
 
 
 def test_cli_run_matches_jax(runs):

@@ -22,7 +22,7 @@ package, on the CPU, from the same numpy inputs.
   scale (the work-bookkeeping columns CWD/PWD/LdK/WD included), the
   step-0 dumps byte for byte, equal predict and correct KSP histories,
   the consistency norm of every step within 1e-9 relative.  Both runs
-  happen once, in one module fixture.
+  happen once a test run (``torch_shared_fixture.build_once``).
 """
 
 import json
@@ -63,6 +63,8 @@ from xpic_tpu_torch.runtime import cli as tcli
 from xpic_tpu_torch.runtime import step_profile
 from xpic_tpu_torch.schemes import build_simulation
 from xpic_tpu_torch.schemes import ecsimcorr as tcorr
+
+from torch_shared_fixture import build_once, load_sims, save_sims
 
 torch.set_num_threads(1)
 
@@ -214,12 +216,30 @@ def _compile_second_push_early(mp, built):
     mp.setattr(jcorr, "_second_push_corr", second_first)
 
 
+# What the tests read of the two runs' simulations.
+SIM_KEYS = ("mass", "dtype", "ksp_history", "corr_history", "norm_history",
+            "current_consistency_norm")
+
+
+def _build_runs(root):
+    """Both packages' runs into ``root/<name>/out``, and what the tests
+    read of their simulations into ``root/sims.json``."""
+    sims = {}
+    for name, cli, schemes, argv in (
+            ("jax", jcli, jschemes, []),
+            ("torch", tcli, tschemes, ["--device", "cpu"])):
+        (root / name).mkdir()
+        sims[name] = _run(cli, schemes, root / name, argv)[1]
+    save_sims(root / "sims.json", sims, SIM_KEYS)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    return {name: _run(cli, schemes, tmp_path_factory.mktemp(name), argv)
-            for name, cli, schemes, argv in (
-                ("jax", jcli, jschemes, []),
-                ("torch", tcli, tschemes, ["--device", "cpu"]))}
+    """Built once per test run, whatever the number of xdist workers
+    (``tests/test_torch_mesh_schemes.py`` reads it too)."""
+    root = build_once(tmp_path_factory, "torch_ecsimcorr_runs", _build_runs)
+    sims = load_sims(root / "sims.json")
+    return {name: (root / name / "out", sims[name]) for name in sims}
 
 
 def test_cli_run_matches_jax(runs):

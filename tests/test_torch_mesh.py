@@ -265,14 +265,15 @@ def test_one_rank_step_makes_no_collective(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("change", [
     {"Mesh": {"z": 2, "y": 2}},
-    {"Mesh": 2, "Simulation": "ecsimcorr"},
-    {"Mesh": 2, "Diagnostics": [{"diagnostic": "VelocityDistribution",
-                                 "particles": "electrons"}]},
+    {"Mesh": {"z": 2, "y": 1, "x": 2}},
     {"Mesh": 2, "SimulationBackup": {"diagnose_period": 1.5}},
-], ids=["zy_mesh", "ecsimcorr", "VelocityDistribution", "backup"])
+    {"Mesh": 2, "SimulationBackup": {"diagnose_period": 1.5,
+                                     "load_from": 2}},
+], ids=["zy_mesh", "zyx_mesh", "backup", "backup_load"])
 def test_next_slice_is_refused(tmp_path, change):
-    """What the next slice brings (ROADMAP A11b) is refused at build time,
-    before any rank joins."""
+    """What the next slices bring (ROADMAP A11b: the (z, y) and (z, y, x)
+    meshes, SimulationBackup over ranks, writing or loading) is refused
+    at build time, before any rank joins."""
     cfg = Config.from_json(dict(make_doc(tmp_path / "out"), **change))
     with pytest.raises(NotImplementedError, match="ROADMAP A11b"):
         build_simulation(cfg, device="cpu")

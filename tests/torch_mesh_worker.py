@@ -1,4 +1,5 @@
-"""The two gloo ranks of ``tests/test_torch_mesh.py``'s op checks.
+"""The two gloo ranks of ``tests/test_torch_mesh.py``'s and
+``tests/test_torch_mesh_schemes.py``'s checks.
 
 ``run(root)`` starts two CPU ranks (``torch.multiprocessing``, spawn),
 joined by gloo.  Each rank runs the port's ops on its z slab of seeded
@@ -6,17 +7,32 @@ states and writes what it got to ``root/rank<r>.npz``; rank 0 also runs
 the same ops on the whole grid (no mesh) into ``root/whole.npz``.  The
 states have movers across both slab faces and across the periodic wrap
 at z = 0.  The tests join the slabs and compare.
+
+``run_schemes(root, jobs)`` starts two ranks that run the CLI on each
+job's config (``root/<job>/cfg.json``, ``"Mesh": 2``) as ranks of one
+group, then the eccapfim slab checks (the window blocks, K6's twin, the
+block scatter, a split Anderson solve, a step whose fast-path guard
+trips on one rank only) into ``root/ops/``.
+
+Every rank joins with a time limit that also bounds each collective
+(gloo's timeout), and a spawn waits at most ``SPAWN_DEADLINE_S``: a
+hung rank fails the fixture instead of the suite's time limit.
 """
 
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import torch
 import torch.multiprocessing as mp
 
 WORLD = 2
+# The time limits of the ranks: the join and each collective, and the
+# whole of a spawn.
+RANK_TIMEOUT_S = 300
+SPAWN_DEADLINE_S = 600
 # The grid of the op checks: 3 planes a slab, the fewest that the
 # float32 neighbour exchange takes.
 NX, NY, NZ = 4, 4, 6
@@ -254,7 +270,8 @@ def _rank(rank, init, root, cfg_doc):
     from xpic_tpu_torch.runtime import distributed
 
     torch.set_num_threads(1)
-    distributed.join(init, rank, WORLD, device="cpu")
+    distributed.join(init, rank, WORLD, device="cpu",
+                     timeout=RANK_TIMEOUT_S)
     try:
         mesh = make_mesh(WORLD, NZ)
         geom = geometry().slab(mesh)
@@ -277,11 +294,195 @@ def _rank(rank, init, root, cfg_doc):
         distributed.leave()
 
 
-def run(root, cfg_doc) -> None:
-    """Start the two ranks and wait for them (raises when one fails)."""
+def spawn(fn, args, deadline=SPAWN_DEADLINE_S) -> None:
+    """Start ``WORLD`` ranks of ``fn(rank, init, *args)`` and wait for
+    them at most ``deadline`` seconds; raises when one fails (the others
+    are ended) or when the time is up (all are killed)."""
     from xpic_tpu_torch.runtime.distributed import free_port
 
     init = f"tcp://127.0.0.1:{free_port()}"
-    mp.spawn(_rank, args=(init, str(root), cfg_doc), nprocs=WORLD,
-             join=True)
+    ctx = mp.start_processes(fn, args=(init, *args), nprocs=WORLD,
+                             join=False, start_method="spawn")
+    end = time.monotonic() + deadline
+    while not ctx.join(timeout=max(1.0, end - time.monotonic())):
+        if time.monotonic() >= end:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+            raise TimeoutError(f"the ranks ran past {deadline} s")
+
+
+def run(root, cfg_doc) -> None:
+    """Start the two ranks and wait for them (raises when one fails)."""
+    spawn(_rank, (str(root), cfg_doc))
+
+
+# -- the schemes over two ranks (tests/test_torch_mesh_schemes.py) ----------
+
+
+def run_cli(cfg, env, report):
+    """``runtime.cli.main`` on ``cfg`` in this rank of the group, with the
+    reference RNG and the environment ``env`` (``XPIC_X64``,
+    ``XPIC_MASS``) set for the run."""
+    from xpic_tpu_torch.runtime import cli
+
+    env = dict(env, XPIC_RNG="reference")
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        rc = cli.main([cfg, "--quiet", "--device", "cpu", "--report",
+                       report])
+    finally:
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+    if rc != 0:
+        raise RuntimeError(f"cli.main returned {rc} on {cfg}")
+
+
+def window_ops(mesh_for):
+    """eccapfim's window pieces on random fields and moves, with a
+    periodic and a ghosted z bound: the [G, 3, 6, 6, 6] window blocks of
+    E and B, K6's plain twin on them, and the block scatter of random
+    current blocks (the slab's rows and planes, or the whole grid's)."""
+    from xpic_tpu_torch.ops.implicit_esirkepov import (
+        gather_window_blocks,
+        scatter_blocks,
+    )
+    from xpic_tpu_torch.ops.segment_kernel import segment_fields_plain
+
+    out = {}
+    for z_bound in ("periodic", "ghosted"):
+        g = geometry(z_bound=z_bound)
+        mesh = mesh_for(z_bound)
+        geom = g if mesh is None else g.slab(mesh)
+        rng = np.random.default_rng(13)
+        E, B = (torch.tensor(rng.standard_normal((3, NZ, NY, NX)))
+                for _ in range(2))
+        Jblk = torch.tensor(rng.standard_normal((g.n_cells, 3, 6, 6, 6)))
+        t0 = rng.random((g.n_cells, K, 3))
+        tn = torch.tensor(t0 + (rng.random((g.n_cells, K, 3)) - 0.5) * 1.6)
+        t0 = torch.tensor(t0)
+        if mesh is not None:
+            E, B = zslab(E, mesh), zslab(B, mesh)
+            rows = slice(mesh.rank * geom.n_cells,
+                         (mesh.rank + 1) * geom.n_cells)
+            Jblk, t0, tn = Jblk[rows], t0[rows], tn[rows]
+        Eblk = gather_window_blocks(E, geom)
+        Bblk = gather_window_blocks(B, geom)
+        E_p, B_p = segment_fields_plain(Eblk, Bblk, t0, tn)
+        out.update({f"windows_E_{z_bound}": Eblk,
+                    f"windows_B_{z_bound}": Bblk,
+                    f"windows_K6E_{z_bound}": E_p,
+                    f"windows_K6B_{z_bound}": B_p,
+                    f"scatter_{z_bound}": scatter_blocks(Jblk, geom)})
+    return {k: v.numpy() for k, v in out.items()}
+
+
+def anderson_split(mesh):
+    """The Anderson solve of F(x) = x + 0.05 curl- curl+ x + 0.1 x^3 - b
+    on a seeded field b (the slab's planes on a mesh, with the curls and
+    the solver's reductions through it): the solution, its iterations
+    and its residual history."""
+    from xpic_tpu_torch.ops.stencil import curl_negative, curl_positive
+    from xpic_tpu_torch.solvers import anderson_solve
+
+    g = geometry()
+    b = torch.tensor(np.random.default_rng(14).standard_normal(
+        (3, NZ, NY, NX)))
+    if mesh is not None:
+        b = zslab(b, mesh)
+    steps, bounds = g.cell_steps, g.bounds
+
+    def F(x):
+        cc = curl_negative(curl_positive(x, steps, bounds, mesh), steps,
+                           bounds, mesh)
+        return x + 0.05 * cc + 0.1 * x ** 3 - b
+
+    res = anderson_solve(F, torch.zeros_like(b), atol=1e-13, rtol=1e-13,
+                         m=5, mesh=mesh)
+    return {"anderson_x": res.x.numpy(),
+            "anderson_iters": np.int64(res.iterations),
+            "anderson_converged": np.bool_(res.converged),
+            "anderson_history": np.array(res.history)}
+
+
+def eccapfim_fallback(doc, root, mesh):
+    """One float64 eccapfim step of ``doc`` (``Diagnostics`` dropped)
+    whose fast path's guard trips on rank 0 alone: rank 0's crosser
+    columns are set to 1, so a row overflows them, and rank 1 takes no
+    fast path (no columns); on the whole grid (``mesh`` None) the columns
+    are 1.  Returns the step's E (the slab's planes), its fallback and
+    outer-iteration histories."""
+    from xpic_tpu_torch.commands import particles_load
+    from xpic_tpu_torch.config import Config
+    from xpic_tpu_torch.schemes import build_simulation
+    from xpic_tpu_torch.schemes import eccapfim
+
+    doc = dict(doc, OutputDirectory=str(root), Diagnostics=[])
+    if mesh is not None:
+        doc["Mesh"] = mesh.world
+    kc = 1 if mesh is None or mesh.rank == 0 else 0
+    pick = eccapfim._pick_kc
+    eccapfim._pick_kc = lambda K: kc
+    os.environ["XPIC_RNG"] = "reference"
+    particles_load.use_reference_rng()
+    try:
+        sim = build_simulation(Config.from_json(doc), device="cpu")
+        sim.initialize()
+        sim.timestep_implementation(1)
+        sim.finalize()
+    finally:
+        eccapfim._pick_kc = pick
+        del os.environ["XPIC_RNG"]
+        particles_load.seed(5489)
+    return {"fallback_E": sim.E.numpy(),
+            "fallback_history": np.array(sim.fallback_history),
+            "fallback_outer": np.array(sim.outer_history)}
+
+
+def _schemes_rank(rank, init, root, jobs, fallback_doc):
+    from xpic_tpu_torch.parallel.mesh import make_mesh
+    from xpic_tpu_torch.runtime import distributed
+
+    torch.set_num_threads(1)
+    distributed.join(init, rank, WORLD, device="cpu",
+                     timeout=RANK_TIMEOUT_S)
+    try:
+        for name, env in jobs:
+            work = os.path.join(root, name)
+            run_cli(os.path.join(work, "cfg.json"), env,
+                    os.path.join(work, "report.json"))
+        ops = os.path.join(root, "ops")
+        res = window_ops(lambda z_bound: make_mesh(WORLD, NZ, z_bound))
+        res.update(anderson_split(make_mesh(WORLD, NZ)))
+        res.update(eccapfim_fallback(
+            fallback_doc, os.path.join(ops, f"fallback{rank}"),
+            make_mesh(WORLD, fallback_doc_nz(fallback_doc))))
+        if rank == 0:
+            ref = window_ops(lambda z_bound: None)
+            ref.update(anderson_split(None))
+            ref.update(eccapfim_fallback(
+                fallback_doc, os.path.join(ops, "fallback_whole"), None))
+            np.savez(os.path.join(ops, "whole.npz"), **ref)
+        np.savez(os.path.join(ops, f"rank{rank}.npz"), **res)
+    finally:
+        distributed.leave()
+
+
+def fallback_doc_nz(doc) -> int:
+    """The z cells of a config document."""
+    g = doc["Geometry"]
+    return int(round(g["z"] / g["dz"]))
+
+
+def run_schemes(root, jobs, fallback_doc) -> None:
+    """The two ranks of the scheme runs: ``jobs`` is a sequence of
+    ``(name, env)``, each config at ``root/<name>/cfg.json``; the op
+    checks, and the eccapfim step of ``fallback_doc`` whose guard trips
+    on one rank, go to ``root/ops/``."""
+    os.makedirs(os.path.join(root, "ops"), exist_ok=True)
+    spawn(_schemes_rank, (str(root), list(jobs), fallback_doc))
 

@@ -15,8 +15,10 @@ nothing is skipped.
 
 from __future__ import annotations
 
+import json
 import os
 import shutil
+import types
 from pathlib import Path
 
 from filelock import FileLock
@@ -44,3 +46,35 @@ def build_once(tmp_path_factory, name: str, build) -> Path:
             build(root)
             done.touch()
     return root
+
+
+def _plain(v):
+    """A simulation attribute as a JSON value (a dtype as its name)."""
+    if isinstance(v, (list, tuple)):
+        return [_plain(x) for x in v]
+    if hasattr(v, "item") and getattr(v, "ndim", 0) == 0:
+        return v.item()
+    if isinstance(v, (bool, int, float, str)) or v is None:
+        return v
+    return str(v)
+
+
+def save_sims(path: Path, sims: dict, keys) -> None:
+    """Write the attributes ``keys`` of each simulation of ``sims`` (a
+    name -> simulation dict) that has them to ``path``, as JSON."""
+    path.write_text(json.dumps({
+        name: {k: _plain(getattr(sim, k)) for k in keys if hasattr(sim, k)}
+        for name, sim in sims.items()}))
+
+
+def load_sims(path: Path) -> dict:
+    """What :func:`save_sims` wrote: a name -> namespace dict, a
+    ``dtype`` back as the ``torch`` dtype."""
+    import torch
+
+    out = {}
+    for name, rec in json.loads(path.read_text()).items():
+        if "dtype" in rec:
+            rec["dtype"] = getattr(torch, rec["dtype"].removeprefix("torch."))
+        out[name] = types.SimpleNamespace(**rec)
+    return out

@@ -5,7 +5,9 @@ Reference: src/commands/fields_damping.cpp.  The damping profile is
 evaluated once on the (cell-centered) grid with numpy and applied on the
 simulation's device as an elementwise multiply on E and on (B - B0); the
 absorbed energy is tracked for the energy-conservation table (used at
-src/diagnostics/energy.cpp:166-170), one host read a step.
+src/diagnostics/energy.cpp:166-170), one host read a step.  On a z slab
+the profile is evaluated at the slab's global planes against the whole
+grid's extent, and the absorbed energy is summed over the ranks.
 """
 
 from __future__ import annotations
@@ -16,15 +18,18 @@ import numpy as np
 import torch
 
 from ..config import parse_value
+from ..parallel.mesh import mesh_of, nz_global_of, z0_of
 from .particles_load import load_box, load_cylinder
 
 log = logging.getLogger("xpic")
 
 
 def _cell_centers(geom):
+    """The cell centres of the grid (of a slab: its planes, at their
+    global z)."""
     x = (np.arange(geom.nx) + 0.5) * geom.dx
     y = (np.arange(geom.ny) + 0.5) * geom.dy
-    z = (np.arange(geom.nz) + 0.5) * geom.dz
+    z = (np.arange(geom.nz) + z0_of(geom) + 0.5) * geom.dz
     Z, Y, X = np.meshgrid(z, y, x, indexing="ij")
     return X, Y, Z
 
@@ -32,7 +37,7 @@ def _cell_centers(geom):
 def damp_for_box(geom, box, coefficient):
     """DampForBox profile (fields_damping.cpp:78-101)."""
     X, Y, Z = _cell_centers(geom)
-    L = (geom.Lx, geom.Ly, geom.Lz)
+    L = (geom.Lx, geom.Ly, nz_global_of(geom) * geom.dz)
     damping = np.ones_like(X)
     inside = np.ones_like(X, dtype=bool)
     for g, lo, hi, Lg in ((X, box.min[0], box.max[0], L[0]),
@@ -104,4 +109,6 @@ class FieldsDamping:
     def execute(self, t: int) -> None:
         sim = self.simulation
         sim.E, sim.B, removed = _apply(sim.E, sim.B, sim.B0, self.factor)
+        if mesh_of(sim.geom) is not None:
+            removed = mesh_of(sim.geom).allreduce_sum(removed)
         self.damped_energy = float(removed)

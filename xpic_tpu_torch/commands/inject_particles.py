@@ -6,7 +6,10 @@ Reference: src/commands/inject_particles.cpp — each step within
 coordinate-shared pairs into two species, tracking the added kinetic
 energy for the energy-conservation table.  The particles are drawn on
 the host by ``particles_load`` (the JAX package's particles for the same
-seed) and appended to each species on its device.
+seed) and appended to each species on its device.  On a z slab every
+rank draws the whole stream, so the ranks' generators stay in step and
+the injected energies are the whole draw's, and each rank keeps the
+particles whose cell lies in its slab (``particles.in_slab``).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import numpy as np
 
 from .. import particles as P
 from ..config import parse_value
+from ..parallel.mesh import mesh_of
 from .particles_load import build_coordinate, build_momentum
 
 log = logging.getLogger("xpic")
@@ -93,7 +97,12 @@ class InjectParticles:
 
         self.energy_i = kinetic(self.ionized.params, pi)
         self.energy_e = kinetic(self.ejected.params, pe)
+        n = coords.shape[0]
+        geom = self.ionized.geom
+        if mesh_of(geom) is not None:
+            keep = P.in_slab(coords, geom, self.ionized.arrays.r.dtype)
+            coords, pi, pe = coords[keep], pi[keep], pe[keep]
         self.ionized.arrays = P.append(self.ionized.arrays, coords, pi)
         self.ejected.arrays = P.append(self.ejected.arrays, coords, pe)
-        self.ionized.n += coords.shape[0]
-        self.ejected.n += coords.shape[0]
+        self.ionized.n += n
+        self.ejected.n += n

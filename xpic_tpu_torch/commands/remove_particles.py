@@ -5,7 +5,9 @@ Reference: src/commands/remove_particles.cpp.  The reference clears
 whole cells whose corner lies outside the keep geometry; here the
 per-particle position test gives the same behavior in the continuum
 limit.  The test runs on the host with numpy, as the JAX package's does,
-so both packages decide alike on the same positions.
+so both packages decide alike on the same positions.  On a z slab each
+rank removes its own particles, and the removed energy and the live
+count are summed over the ranks in one all-reduce.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import logging
 import numpy as np
 import torch
 
+from ..parallel.mesh import mesh_of
 from ..particles import ParticleArrays
 from .particles_load import load_box, load_cylinder
 
@@ -54,19 +57,30 @@ class RemoveParticles:
         alive = arr.alive.cpu().numpy()
         keep = self.tester(r)
         remove = alive & ~keep
-        if not remove.any():
-            self.removed_energy = 0.0
-            return
         params = self.species.params
-        w = 0.5 * params.m * params.n_Np
-        p = arr.p.cpu().numpy()
-        self.removed_energy = float(w * np.sum(p[remove] ** 2))
+        energy = 0.0
+        if remove.any():
+            p = arr.p.cpu().numpy()
+            energy = float(0.5 * params.m * params.n_Np
+                           * np.sum(p[remove] ** 2))
+        removed = int(remove.sum())
         alive = alive & keep
+        n = int(alive.sum())
+        mesh = mesh_of(self.species.geom)
+        if mesh is not None:
+            # On the species' device: NCCL reduces no host tensor.
+            energy, removed, n = mesh.allreduce_sum(torch.tensor(
+                [energy, removed, n], dtype=torch.float64,
+                device=arr.alive.device)).tolist()
+            removed, n = int(removed), int(n)
+        self.removed_energy = energy
+        if not removed:
+            return
         self.species.arrays = ParticleArrays(
             r=arr.r, p=arr.p,
             alive=torch.as_tensor(alive, device=arr.alive.device))
-        self.species.n = int(alive.sum())
+        self.species.n = n
         log.info(
             "  Removed %d particles from %r (energy %.4e)",
-            int(remove.sum()), params.sort_name, self.removed_energy,
+            removed, params.sort_name, self.removed_energy,
         )

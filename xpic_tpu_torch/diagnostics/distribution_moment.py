@@ -8,7 +8,9 @@ at the half-shifted lattice, distribution_moment.cpp:125-155), weighted
 by n/Np, then dumps float32 binaries in the FieldView layout under
 ``<out_dir>/<particles>/<moment><suffix>``.  In a run over a z mesh the
 slabs' deposits are gathered to rank 0, which writes the whole grid's
-file (a region under a mesh is ROADMAP A11b).
+file; a region's box is deposited by every rank from the particles of
+its own cells, and the boxes are summed over the ranks before rank 0
+writes the region's file.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 from ..config import PERIODIC, Geometry, parse_value
 from ..ops.gather_scatter import cell_t, deposit_scalar
 from .field_view import format_time
-from ..parallel.mesh import mesh_of
+from ..parallel.mesh import mesh_of, nz_global_of, z0_of
 
 MOMENT_DOF = {
     "density": 1,
@@ -89,10 +91,6 @@ class DistributionMoment:
         suffix = ""
         region = None
         if "region" in info:
-            if mesh_of(simulation.geom) is not None:
-                from ..parallel.mesh import refuse
-
-                refuse("a DistributionMoment region with a mesh")
             reg = info["region"]
             if "suffix" in reg:
                 suffix = "_" + reg["suffix"]
@@ -100,7 +98,7 @@ class DistributionMoment:
             units = simulation.cfg.unit_table()
             steps = (g.dx, g.dy, g.dz)
             start = [0, 0, 0]
-            size = [g.nx, g.ny, g.nz]
+            size = [g.nx, g.ny, nz_global_of(g)]
             if "start" in reg:
                 start = [int(parse_value(reg["start"][i], units) // steps[i])
                          for i in range(3)]
@@ -120,7 +118,8 @@ class DistributionMoment:
         distribution_moment.cpp:125-155): the cell rows intersecting the
         region dilated by the deposit's 1-cell spline halo, wrapped on
         periodic axes and masked dead outside the domain on the others,
-        deposited into a +2-padded sub-box whose windows never wrap.
+        deposited into a +2-padded sub-box whose windows never wrap.  On a
+        z slab the rows of planes outside the slab are masked dead.
         Returns ``(rows, halo_ok, sub_geom)``."""
         geom = self.simulation.geom
         (sx, sy, sz), (rx, ry, rz) = self.region
@@ -128,14 +127,18 @@ class DistributionMoment:
         ys = np.arange(sy - 1, sy + ry + 1)
         xs = np.arange(sx - 1, sx + rx + 1)
         halo_ok = np.ones((len(zs), len(ys), len(xs)), bool)
+        nz = nz_global_of(geom)
         for ax, idx in ((0, xs), (1, ys), (2, zs)):
-            n = (geom.nx, geom.ny, geom.nz)[ax]
+            n = (geom.nx, geom.ny, nz)[ax]
             if geom.bounds[ax] != PERIODIC:
                 in_dom = (idx >= 0) & (idx < n)
                 shape = [1, 1, 1]
                 shape[2 - ax] = len(idx)
                 halo_ok &= in_dom.reshape(shape)
-        zs, ys, xs = zs % geom.nz, ys % geom.ny, xs % geom.nx
+        zs, ys, xs = zs % nz - z0_of(geom), ys % geom.ny, xs % geom.nx
+        mine = (zs >= 0) & (zs < geom.nz)
+        halo_ok &= mine[:, None, None]
+        zs = np.clip(zs, 0, geom.nz - 1)
         rows = ((zs[:, None, None] * geom.ny + ys[None, :, None])
                 * geom.nx + xs[None, None, :]).reshape(-1)
         sub_geom = Geometry(dx=geom.dx, dy=geom.dy, dz=geom.dz, dt=geom.dt,
@@ -175,9 +178,13 @@ class DistributionMoment:
         if t % sim.geom.diagnose_period != 0:
             return
         data = self.collect(sim.binned(self.species))
-        if mesh_of(sim.geom) is not None:
-            data = mesh_of(sim.geom).gather_to_root(data, dim=0)
-            if data is None:
+        mesh = mesh_of(sim.geom)
+        if mesh is not None:
+            if self.region is None:
+                data = mesh.gather_to_root(data, dim=0)
+            else:
+                data = mesh.allreduce_sum(data)
+            if not mesh.is_root:
                 return
         data = data.to(torch.float32).cpu().numpy()
         from .io import binary_dump

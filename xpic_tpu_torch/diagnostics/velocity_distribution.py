@@ -10,7 +10,9 @@ The histogram is formed without atomics, so that two calls on the card
 write the same bytes: the flat bin ids are sorted (stably), each run of
 equal ids is one bin's particles, and its sum is written to its bin.
 Every particle carries the same weight n/Np, so a run's sum is its
-length times the weight.
+length times the weight.  On a z slab each rank bins its own particles,
+the bins' counts are summed over the ranks, and rank 0 writes: the
+one-rank histogram, bit for bit.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from ..config import parse_value, parse_vector
+from ..parallel.mesh import mesh_of
 from .field_view import format_time
 
 
@@ -39,14 +42,14 @@ def _project(name, r, p, Lx, Ly):
     raise ValueError(f"unknown velocity projector {name!r}")
 
 
-def histogram(flat, n_bins: int, weight: float, dtype):
-    """Bins [n_bins] of ``weight`` per id of ``flat`` (ids >= n_bins are
-    dropped): a stable sort, the runs of equal ids, one write a bin."""
+def bin_counts(flat, n_bins: int):
+    """The count [n_bins] (int64) of each id of ``flat`` (ids >= n_bins
+    are dropped): a stable sort, the runs of equal ids, one write a bin."""
     ids, _ = torch.sort(flat, stable=True)
     bins, counts = torch.unique_consecutive(ids, return_counts=True)
-    hist = torch.zeros(n_bins + 1, dtype=dtype, device=flat.device)
-    hist[bins] = counts.to(dtype) * weight
-    return hist[:-1]
+    out = torch.zeros(n_bins + 1, dtype=torch.int64, device=flat.device)
+    out[bins] = counts
+    return out[:-1]
 
 
 class VelocityDistribution:
@@ -95,6 +98,12 @@ class VelocityDistribution:
 
     def collect(self, arrays):
         """The histogram [nv2, nv1] of a flat species view."""
+        counts = self.counts(arrays)
+        return (counts.to(arrays.r.dtype)
+                * self.species.params.n_Np).reshape(self.nv[1], self.nv[0])
+
+    def counts(self, arrays):
+        """The bins' particle counts [nv2 * nv1] of a flat species view."""
         geom = self.simulation.geom
         nv1, nv2 = self.nv
         r, p, alive = arrays.r, arrays.p, arrays.alive
@@ -114,14 +123,21 @@ class VelocityDistribution:
         ok = inside & (i1 >= 0) & (i1 < nv1) & (i2 >= 0) & (i2 < nv2)
         flat = torch.where(ok, i2 * nv1 + i1,
                            torch.full_like(i1, nv1 * nv2))
-        hist = histogram(flat, nv1 * nv2, self.species.params.n_Np, r.dtype)
-        return hist.reshape(nv2, nv1)
+        return bin_counts(flat, nv1 * nv2)
 
     def diagnose(self, t: int) -> None:
         sim = self.simulation
         if t % sim.geom.diagnose_period != 0:
             return
-        hist = self.collect(self.species.arrays)
+        arrays = self.species.arrays
+        counts = self.counts(arrays)
+        mesh = mesh_of(sim.geom)
+        if mesh is not None:
+            counts = mesh.allreduce_sum(counts)
+            if not mesh.is_root:
+                return
+        hist = (counts.to(arrays.r.dtype) * self.species.params.n_Np
+                ).reshape(self.nv[1], self.nv[0])
         from .io import binary_dump
 
         binary_dump(

@@ -25,6 +25,11 @@ The path split at node-cell faces replaces ``cell_traversal``
 (src/impls/eccapfim/cell_traversal.cpp:3-77): with per-axis displacement
 below one cell there is at most one face crossing per axis, so the
 crossing parameters sort into at most 4 segments.
+
+On a z slab (``geom.mesh``) the windows read a field padded with the
+neighbour ranks' ghost planes, and the deposit's blocks fold their ghost
+planes back (``blocks_to_grid``): a cell's window holds the whole grid's
+values.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ import numpy as np
 import torch
 
 from ..config import PERIODIC, Geometry
-from .gather_scatter import blocks_to_grid
+from ..parallel.mesh import mesh_of
+from .gather_scatter import blocks_to_grid, pad_for, z_halo
 from .splines import spline_1, spline_2
 
 WIDTH = 6
@@ -44,11 +50,14 @@ MAXSEG = 4
 
 
 @lru_cache(maxsize=None)
-def _window_index(nx: int, ny: int, nz: int, bounds, device) -> torch.Tensor:
-    """[G, 3, 216] indices into the [3, G + 1] padded field, flattened:
+def _window_index(nx: int, ny: int, nz: int, bounds, device,
+                  zpad=None) -> torch.Tensor:
+    """[G, 3, 216] indices into the [3, G' + 1] padded field, flattened:
     every window entry (axis order dz, dy, dx) of every cell, periodic
     axes wrapped; an entry outside a non-periodic domain points at the
-    zero appended to its component."""
+    zero appended to its component.  With ``zpad = (lo, hi)`` the field
+    is a z slab of ``nz`` planes padded with ``lo`` ghost planes below
+    and ``hi`` above (G' counts them), read there with no wrap in z."""
     G = nx * ny * nz
     g = np.arange(G)
     cell = (g % nx, (g // nx) % ny, g // (nx * ny))  # (x, y, z)
@@ -56,7 +65,9 @@ def _window_index(nx: int, ny: int, nz: int, bounds, device) -> torch.Tensor:
     idx, inside = [], np.ones((G, 1, 1, 1), bool)
     for axis, n in enumerate((nx, ny, nz)):
         c = cell[axis][:, None] + o[None, :]  # [G, 6]
-        if bounds[axis] == PERIODIC:
+        if axis == 2 and zpad is not None:
+            c = c + zpad[0]
+        elif bounds[axis] == PERIODIC:
             c = c % n
         else:
             ok = (c >= 0) & (c < n)
@@ -66,20 +77,26 @@ def _window_index(nx: int, ny: int, nz: int, bounds, device) -> torch.Tensor:
             c = np.clip(c, 0, n - 1)
         idx.append(c)
     x, y, z = idx
+    Gp = nx * ny * (nz if zpad is None else nz + zpad[0] + zpad[1])
     flat = ((z[:, :, None, None] * ny + y[:, None, :, None]) * nx
             + x[:, None, None, :])
-    flat = np.where(inside, flat, G).reshape(G, 1, WIDTH ** 3)
-    comp = np.arange(3)[None, :, None] * (G + 1)
+    flat = np.where(inside, flat, Gp).reshape(G, 1, WIDTH ** 3)
+    comp = np.arange(3)[None, :, None] * (Gp + 1)
     return torch.as_tensor(flat + comp, device=device)
 
 
 def gather_window_blocks(F, geom: Geometry):
     """Per-cell windows out[G, 3, 6, 6, 6] with axes (component, dz, dy,
-    dx), offsets ANCHOR..ANCHOR+5 from the cell: one gather."""
+    dx), offsets ANCHOR..ANCHOR+5 from the cell: one gather.  On a z
+    slab the field is padded first with the ghost planes the windows
+    read (2 below, 3 above; zeros beyond a non-periodic global bound)."""
     G = geom.n_cells
-    padded = torch.cat([F.reshape(3, G), F.new_zeros(3, 1)], dim=1)
+    zpad = None if mesh_of(geom) is None else z_halo(ANCHOR, WIDTH)
+    F = pad_for(F, geom, zpad)
+    Gp = F[0].numel()
+    padded = torch.cat([F.reshape(3, Gp), F.new_zeros(3, 1)], dim=1)
     idx = _window_index(geom.nx, geom.ny, geom.nz, tuple(geom.bounds),
-                        F.device)
+                        F.device, zpad)
     out = padded.reshape(-1)[idx]
     return out.reshape(G, 3, WIDTH, WIDTH, WIDTH)
 

@@ -70,8 +70,8 @@ def cells_global_of(geom) -> int:
 
 def refuse(what: str):
     raise NotImplementedError(
-        f"{what}: xpic_tpu_torch runs a 1-D z mesh (\"Mesh\": N) of the "
-        f"ecsim scheme; the rest is {A11B}")
+        f"{what}: xpic_tpu_torch runs the four schemes over a 1-D z mesh "
+        f"(\"Mesh\": N); the rest is {A11B}")
 
 
 def make_mesh(shape, nz_global: int, z_bound: str = PERIODIC, *,
@@ -247,6 +247,16 @@ class SlabMesh:
 
     def allreduce_max(self, x: torch.Tensor) -> torch.Tensor:
         return self._all_reduce(x, dist.ReduceOp.MAX, "allreduce_max")
+
+    def allgather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x`` (the same shape on every rank) stacked in
+        rank order: [world, *x.shape], one collective."""
+        with self._clock("allgather", x):
+            h = self._host(x)
+            outs = [self._empty_like(h) for _ in range(self.world)]
+            dist.all_gather(outs, h)
+            self.bytes_sent += (self.world - 1) * h.numel() * h.element_size()
+            return self._back(torch.stack(outs), x)
 
     def allgather_rows(self, x: torch.Tensor) -> list[torch.Tensor]:
         """Every rank's ``x`` (rows of any count, the same trailing

@@ -52,8 +52,8 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--report", metavar="PATH", default=None,
         help="write a JSON summary of the run to PATH (PATH.rank<r> for "
-             "each rank of a multi-rank run): KSP iterations, step times, "
-             "particle count, kernel launches and the mesh's traffic",
+             "each rank of a multi-rank run): the solvers' iterations, step "
+             "times, particle count, kernel launches and the mesh's traffic",
     )
     parser.add_argument(
         "--device", default=None,
@@ -173,6 +173,14 @@ def write_report(path: str, sim) -> None:
         "mesh": {"bytes_sent": mesh.bytes_sent, "seconds": mesh.seconds,
                  "calls": dict(mesh.calls)},
     }
+    # The scheme's other solver histories: ecsimcorr's correct solve and
+    # consistency norm, eccapfim's outer iterations, its fast path's
+    # fallbacks and each step's Crank-Nicolson loop counts (the rank's
+    # own on a slab).
+    for key in ("correct_ksp_history", "consistency_history", "outer_history",
+                "fallback_history", "cn_history"):
+        if hasattr(sim, key):
+            doc[key] = list(getattr(sim, key))
     if mesh.world > 1:
         path = f"{path}.rank{mesh.rank}"
     with open(path, "w") as fh:

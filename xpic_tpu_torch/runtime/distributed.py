@@ -20,6 +20,7 @@ fails the run: no rank runs on the CPU in its place.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import logging
 import os
 import socket
@@ -89,15 +90,20 @@ def choose_backend(device: torch.device, shared_card: bool) -> str:
 
 
 def join(init_method: str, rank: int, world: int, device=None,
-         backend: str | None = None) -> RankInfo:
+         backend: str | None = None,
+         timeout: float | None = None) -> RankInfo:
     """Join the group as rank ``rank`` of ``world`` and pin the rank's
-    device; returns what was chosen (also logged)."""
+    device; returns what was chosen (also logged).  ``timeout`` (seconds)
+    bounds the join and every collective of the group (the backend's
+    default otherwise)."""
     dev, shared = rank_device(rank, world, device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     backend = backend or choose_backend(dev, shared)
+    kw = {} if timeout is None else {
+        "timeout": datetime.timedelta(seconds=timeout)}
     dist.init_process_group(backend=backend, init_method=init_method,
-                            rank=rank, world_size=world)
+                            rank=rank, world_size=world, **kw)
     info = RankInfo(rank, world, dev, backend, shared)
     log.info("Joined the group: %s", info.describe())
     return info

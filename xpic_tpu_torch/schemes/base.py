@@ -8,12 +8,14 @@ physics lives in each scheme; everything here is glue that runs on the
 host between steps.  Fields and species live on one ``torch.device`` in
 one dtype, both fixed when the simulation is built.
 
-``"Mesh": N`` runs the ecsim scheme over N ranks of a process group, one
-z slab each (``parallel/mesh.py``): ``self.geom`` is the rank's slab,
+``"Mesh": N`` runs a scheme over N ranks of a process group, one z slab
+each (``parallel/mesh.py``): ``self.geom`` is the rank's slab,
 ``self.cfg.geometry`` the whole grid's.  The host reads that decide
-anything (particle counts, the capacity check, the slot count K) are
-reduced over the ranks first, so every rank takes the same branch and
-grows K together.  A (z, y) or (z, y, x) mesh, the other schemes, and
+anything (particle counts, the capacity check, the slot count K, the
+solvers' norms) are reduced over the ranks first, so every rank takes
+the same branch and grows K together.  A slab thinner than the widest
+window the scheme reads across a slab face is refused when the
+simulation is built.  A (z, y) or (z, y, x) mesh, SimulationBackup, and
 the commands and diagnostics not listed in ``MESH_SECTIONS`` are
 ROADMAP A11b and refused.
 """
@@ -37,14 +39,19 @@ from ..ops.binning import (
     unbin_state,
 )
 from ..particles import ParticleArrays, make_empty
+from ..ops.gather_scatter import z_halo
 from ..parallel.mesh import mesh_of
 
 log = logging.getLogger("xpic")
 
-# What a run over a z mesh takes from the config's sections.
+# What a run over a z mesh takes from the config's sections (Energy,
+# ChargeConservation, MomentumConservation and eccapfim's
+# ConvergenceHistory are added by the schemes themselves).
 MESH_SECTIONS = {
-    "command": ("SetParticles", "SetMagneticField"),
-    "diagnostic": ("FieldView", "DistributionMoment"),
+    "command": ("SetParticles", "SetMagneticField", "InjectParticles",
+                "RemoveParticles", "FieldsDamping"),
+    "diagnostic": ("FieldView", "DistributionMoment",
+                   "VelocityDistribution", "LogView"),
 }
 
 
@@ -162,6 +169,10 @@ class Species:
 
 class Simulation:
     scheme_name = "base"
+    # The windows (anchor, width) the scheme reads across a slab face:
+    # ChargeConservation's order-2 charge deposit, which every scheme
+    # runs, and the scheme's own widest.
+    windows = ((-1, 4),)
 
     def __init__(self, cfg: Config, device: torch.device,
                  dtype: torch.dtype):
@@ -172,9 +183,13 @@ class Simulation:
         if cfg.n_devices > 1:
             if len(cfg.mesh_shape) > 1:
                 refuse(f'"Mesh" {dict(zip("zyx", cfg.mesh_shape))}')
-            if self.scheme_name != "ecsim":
-                refuse(f'the {self.scheme_name} scheme with "Mesh": '
-                       f"{cfg.n_devices}")
+            halo = max(max(z_halo(a, w)) for a, w in self.windows)
+            planes = g.nz // cfg.n_devices
+            if planes < halo:
+                raise ValueError(
+                    f'"Mesh": {cfg.n_devices} gives slabs of {planes} z '
+                    f"planes, thinner than the {halo} ghost planes the "
+                    f"{self.scheme_name} scheme reads across a slab face")
             for kind, names in MESH_SECTIONS.items():
                 for info in (*cfg.presets, *cfg.step_presets,
                              *cfg.diagnostics):
@@ -296,7 +311,8 @@ class Simulation:
         for sp in self.species:
             sp.state  # noqa: B018 — property access triggers the rebin
 
-    def check_load(self, sp: Species, load) -> None:
+    def check_load(self, sp: Species, load, reduced: bool = False
+                   ) -> None:
         """Police the per-cell capacity after a checked rebin (one
         device-to-host read).
 
@@ -307,9 +323,10 @@ class Simulation:
         K = 40; above, a cell's count can rise by more than 4 in one step
         (its sd is ~sqrt(2 f n) for a fraction f of particles changing
         cell: ~4 at n = 90, f = 0.1), and the fixed margin drops
-        particles at 32^3 x 50 ppc."""
+        particles at 32^3 x 50 ppc.  On a slab the ranks' loads are
+        reduced here, unless the caller already did (``reduced``)."""
         mesh = mesh_of(self.geom)
-        if mesh is not None:
+        if mesh is not None and not reduced:
             load = torch.cat([mesh.allreduce_max(load[:1]),
                               mesh.allreduce_sum(load[1:])])
         vals = [int(v) for v in load.tolist()]

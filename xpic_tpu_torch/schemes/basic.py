@@ -15,7 +15,10 @@ Species live in the persistent cell-binned ``BinnedState``; the push
 ends with the capacity-checked migration, which on the card runs the
 neighbour exchange's kernels (``rebin_extract``, ``rebin_place``).
 Host synchronisations a step: the rebin guard of each migration and
-each species' load read by ``check_load``.
+each species' load read by ``check_load``.  Over a z mesh the width-6
+gathers pad the fields with 2 ghost planes below and 3 above, the
+Esirkepov deposit folds its ghost planes, and the curls exchange one
+plane a side (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from ..ops.gather_scatter import (
     gather_vector,
 )
 from ..ops.stencil import curl_negative, curl_positive
+from ..parallel.mesh import mesh_of
 from ..pushers import update_vEB
 from .base import Simulation
 
@@ -69,23 +73,25 @@ def _push_species(E, B, st: BinnedState, geom: Geometry, qm: float,
 def _half_rotation(E, B, B0, geom: Geometry):
     """B -> B - (dt/2) curl+ (E), excluding the external field B0
     (reference: basic/simulation.cpp:45-52)."""
-    return B - 0.5 * geom.dt * curl_positive(E, geom.cell_steps, geom.bounds)
+    return B - 0.5 * geom.dt * curl_positive(E, geom.cell_steps, geom.bounds,
+                                             mesh_of(geom))
 
 
 def _push_fields(E, B, B0, J, geom: Geometry):
     """Faraday then Ampere update (reference: basic/simulation.cpp:74-100).
     The JAX function also returns |E^{n+1} - E^n|, which nothing reads;
     the port does not compute it."""
-    steps, bounds = geom.cell_steps, geom.bounds
+    steps, bounds, mesh = geom.cell_steps, geom.bounds, mesh_of(geom)
     dt = geom.dt
     Bi = B - B0
-    Bi = Bi - 0.5 * dt * curl_positive(E, steps, bounds)
-    E_new = E + dt * curl_negative(Bi, steps, bounds) - dt * J
+    Bi = Bi - 0.5 * dt * curl_positive(E, steps, bounds, mesh)
+    E_new = E + dt * curl_negative(Bi, steps, bounds, mesh) - dt * J
     return E_new, Bi + B0
 
 
 class BasicSimulation(Simulation):
     scheme_name = "basic"
+    windows = Simulation.windows + ((-2, 6),)  # the gathers and deposit
 
     def initialize_implementation(self) -> None:
         pass

@@ -34,6 +34,18 @@ statistics per step.
 Nonlinear solver: Anderson mixing (the algorithmic core of NGMRES) with
 atol=rtol=1e-7 over the preconditioned residual (eccapfim/simulation.h:
 14-24).
+
+Over a z mesh (``geom.mesh``) the window blocks read the neighbour
+ranks' ghost planes, the current blocks fold theirs back, the curls and
+the Chebyshev inverse (K1's slab form on the card) exchange planes, and
+the Anderson solve reduces its norms and Gram products once an
+iteration.  Each rank's Crank-Nicolson loop runs on its own particles
+with no collective inside it.  The solve's statistics (the largest
+move, the unconverged count, the fast path's guard, the sweeps' loop
+counts) are gathered over the ranks in one collective before their host
+read, so every rank redoes a step on the general path together, and a
+species' Crank-Nicolson count is the largest rank's loop count: the
+loop count of the whole grid.
 """
 
 from __future__ import annotations
@@ -48,7 +60,9 @@ from ..config import Geometry
 from ..ops.binning import BinnedState, migrate_checked
 from ..ops.gather_scatter import cell_t
 from ..ops.implicit_esirkepov import (
+    ANCHOR as WINDOW_ANCHOR,
     MAXSEG,
+    WIDTH as WINDOW_WIDTH,
     _axis_map,
     _axis_weights_E,
     _component_weights,
@@ -62,6 +76,7 @@ from ..ops.implicit_esirkepov import (
 )
 from ..ops.segment_kernel import segment_fields
 from ..ops.stencil import curl_negative, curl_positive
+from ..parallel.mesh import cells_global_of, mesh_of
 from ..solvers import anderson_solve
 from ..solvers.spectral import make_matM_preconditioner
 from .base import Simulation
@@ -313,6 +328,7 @@ def _commit_state(st: BinnedState, geom: Geometry):
 
 class EccapfimSimulation(Simulation):
     scheme_name = "eccapfim"
+    windows = Simulation.windows + ((WINDOW_ANCHOR, WINDOW_WIDTH),)
 
     def initialize_implementation(self) -> None:
         self.phase_timings: dict[str, float] = {}
@@ -353,7 +369,7 @@ class EccapfimSimulation(Simulation):
         # matM in spectral.py is 2 I + (dt'^2/2) curlcurl; with
         # dt' = dt/sqrt(2):  matM = 2 I + (dt^2/2) curlcurl = 2 M.
         P = make_matM_preconditioner(geom, geom.dt / math.sqrt(2.0))
-        steps, bounds = geom.cell_steps, geom.bounds
+        steps, bounds, mesh = geom.cell_steps, geom.bounds, mesh_of(geom)
         sim = self
 
         def fused(E_hk, E, B, states):
@@ -379,11 +395,11 @@ class EccapfimSimulation(Simulation):
                 nonconv = nonconv + nc
             F = (E_hk
                  + 0.25 * geom.dt ** 2
-                 * curl_negative(curl_positive(E_hk, steps, bounds),
-                                 steps, bounds)
+                 * curl_negative(curl_positive(E_hk, steps, bounds, mesh),
+                                 steps, bounds, mesh)
                  - E
                  + 0.5 * geom.dt * J
-                 - 0.5 * geom.dt * curl_negative(B, steps, bounds))
+                 - 0.5 * geom.dt * curl_negative(B, steps, bounds, mesh))
             G = 2.0 * P(F, 0.0)
             return G, (J, tuple(pend), its, max_disp, nonconv,
                        (overflow, viol))
@@ -411,13 +427,25 @@ class EccapfimSimulation(Simulation):
             guard[1] = vi if guard[1] is None else torch.maximum(guard[1], vi)
             return g
 
+        mesh = mesh_of(self.geom)
         result = anderson_solve(G, self.E, atol=atol, rtol=rtol, maxit=MAXIT,
-                                m=10)
+                                m=10, mesh=mesh)
         J_last, pend, its, max_disp, nonconv, _ = last["out"]
-        max_disp, nonconv, overflow, viol = torch.stack(
+        head = torch.stack(
             [max_disp.to(torch.float64), nonconv.to(torch.float64),
-             guard[0].to(torch.float64), guard[1].to(torch.float64)]
-        ).tolist()
+             guard[0].to(torch.float64), guard[1].to(torch.float64)])
+        if mesh is None:
+            max_disp, nonconv, overflow, viol = head.tolist()
+        else:
+            # One collective: the largest move, overflow and loop counts,
+            # the summed unconverged particles and guard violations.
+            ranks = mesh.allgather(torch.cat([head, torch.tensor(
+                its, dtype=torch.float64, device=head.device)]))
+            top = ranks.max(dim=0).values.tolist()
+            total = ranks.sum(dim=0).tolist()
+            max_disp, overflow, nonconv, viol = top[0], top[2], total[1], \
+                total[3]
+            its = [int(i) for i in top[4:]]
         return {
             "x": result.x, "history": result.history,
             "iterations": result.iterations,
@@ -442,7 +470,7 @@ class EccapfimSimulation(Simulation):
         else:
             # RMS-scaled absolute floor only; the relative target stays
             # at the documented RTOL.
-            atol = ATOL_F32 * math.sqrt(self.E.numel()) / bound
+            atol = ATOL_F32 * math.sqrt(3 * cells_global_of(geom)) / bound
             rtol = RTOL / bound
         out = self._solve_once(states, atol, rtol, True)
         fell_back = bool(out["overflow"] or out["violations"])
@@ -491,7 +519,7 @@ class EccapfimSimulation(Simulation):
         # after_iteration (eccapfim/simulation.cpp:106-129)
         self.E = 2.0 * sol - self.E
         self.B = self.B - geom.dt * curl_positive(sol, geom.cell_steps,
-                                                  geom.bounds)
+                                                  geom.bounds, mesh_of(geom))
         self.J = out["J"]
 
         # Commit the particle states of the last residual evaluation

@@ -25,6 +25,14 @@ the two solves, the rebin guard of each migration, and one fused read a
 step of the consistency norm, the renormalization statistics and the
 migration loads (``_host_sync``), where the solves' non-convergence
 raises.
+
+Over a z mesh (``geom.mesh``) the deposits, gathers, curls, the CG and
+its Chebyshev preconditioner run through the mesh as in ECSIM; the
+renormalization's four sums of a species (pred_w, corr_w, K and K0)
+are all-reduced in one collective, so every rank scales by the same
+lambda, and
+the step's fused vector (the consistency norm's sum of squares and the
+loads) is all-gathered once before its host read.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from ..ops.gather_scatter import (
 )
 from ..ops.mass_free import gather_vector_slots
 from ..ops.stencil import curl_negative, curl_positive
+from ..parallel.mesh import mesh_of
 from ..parallel.step import matL_apply
 from ..pushers import update_vEB
 from ..solvers import cg
@@ -103,18 +112,18 @@ def _correct_fields(E, B, B0, currJe, geom: Geometry):
     preconditioned by the Chebyshev apply at shift 0 (matM is constant
     SPD; ecsimcorr/simulation.cpp:52-63, 131-133).  Returns ``(Ec,
     iterations, residual_norm, converged)``."""
-    steps, bounds = geom.cell_steps, geom.bounds
+    steps, bounds, mesh = geom.cell_steps, geom.bounds, mesh_of(geom)
     half_dt2 = 0.5 * geom.dt * geom.dt
 
     def matM(x):
         return 2.0 * x + half_dt2 * curl_negative(
-            curl_positive(x, steps, bounds), steps, bounds)
+            curl_positive(x, steps, bounds, mesh), steps, bounds, mesh)
 
     rhs = (2.0 * E - geom.dt * currJe
-           + geom.dt * curl_negative(B - B0, steps, bounds))
+           + geom.dt * curl_negative(B - B0, steps, bounds, mesh))
     P = make_matM_preconditioner(geom, geom.dt)
     res = cg(matM, rhs, x0=E, rtol=RTOL, atol=ATOL, maxit=MAXIT,
-             M_inv=lambda v: P(v, 0.0))
+             M_inv=lambda v: P(v, 0.0), mesh=mesh)
     return res.x, res.iterations, res.residual_norm, res.converged
 
 
@@ -123,9 +132,14 @@ def _renormalize(st: BinnedState, currJe_s, Ec, pred_w, K0,
     """Velocity renormalization lambda = sqrt(1 + dt (corr_w - pred_w)/K)
     (ecsimcorr/particles.cpp:93-126).  Returns the scaled state and the
     statistics [lambda_dK, pred_dK, corr_dK, pred_w, corr_w] (a device
-    tensor)."""
-    corr_w = torch.sum(currJe_s * Ec)
-    K = kinetic_energy_state(st, m_mpw)
+    tensor).  On a slab the four sums pred_w, corr_w, K and K0 are
+    all-reduced in one collective, so every rank scales by the same
+    lambda."""
+    sums = torch.stack([pred_w, torch.sum(currJe_s * Ec),
+                        kinetic_energy_state(st, m_mpw), K0])
+    if mesh_of(geom) is not None:
+        sums = mesh_of(geom).allreduce_sum(sums)
+    pred_w, corr_w, K, K0 = sums
     lambda2 = torch.where(
         K > 0.0,
         1.0 + geom.dt * (corr_w - pred_w) / torch.clamp(K, min=1e-300),
@@ -144,10 +158,14 @@ def _renormalize(st: BinnedState, currJe_s, Ec, pred_w, K0,
 
 class EcsimcorrSimulation(EcsimSimulation):
     scheme_name = "ecsimcorr"
+    windows = EcsimSimulation.windows + ((-2, 6),)  # the Esirkepov deposit
 
     def initialize_implementation(self) -> None:
         super().initialize_implementation()
         self.Ec = torch.zeros_like(self.E)
+        # Per step: the correct solve's iterations, the consistency norm.
+        self.correct_ksp_history: list[int] = []
+        self.consistency_history: list[float] = []
         for sp in self.species:  # the step-0 row of EcsimcorrEnergy
             sp.corr_stats = dict(_NO_STATS)
 
@@ -179,9 +197,11 @@ class EcsimcorrSimulation(EcsimSimulation):
             sp.state, J_inc, sp.pred_w, load2 = _second_push_corr(
                 self.Ep, self.B, sp.state, self.geom, pr.qm,
                 pr.q * pr.n_Np, alpha)
-            # The larger of the two half-step migrations' loads.
-            sp._load = (load2 if sp._load is None
-                        else torch.maximum(sp._load, load2))
+            # Both half-step migrations' loads [2, 3]; the step's load is
+            # their elementwise maximum, taken in _host_sync once each is
+            # reduced over the ranks.
+            sp._load = torch.stack([load2 if sp._load is None
+                                    else sp._load, load2])
             sp.currJe = sp.currJe + J_inc
             self.currJe = self.currJe + sp.currJe
 
@@ -212,36 +232,50 @@ class EcsimcorrSimulation(EcsimSimulation):
             sp.state, sp._stats_d = _renormalize(
                 sp.state, sp.currJe, self.Ec, pred_w, sp.energy0, self.geom,
                 sp.params.m * sp.params.n_Np)
+        mesh = mesh_of(self.geom)
 
         # Scheme health: the ECSIM current at the corrected field must
         # match the Esirkepov current, ||currJe - (currI + matL Ec)||
-        # (ecsimcorr/simulation.cpp:76-83), taken before the swap.
-        self._consistency_d = torch.linalg.norm(
-            (self.currJe - (self.currI + self._matL_apply(self.Ec)))
-            .reshape(-1))
+        # (ecsimcorr/simulation.cpp:76-83), taken before the swap; on a
+        # slab the rank's sum of squares, reduced in _host_sync.
+        diff = (self.currJe - (self.currI + self._matL_apply(self.Ec))
+                ).reshape(-1)
+        self._consistency_d = (torch.linalg.norm(diff) if mesh is None
+                               else torch.sum(diff * diff))
 
         self.Ep, self.Ec = self.Ec, self.Ep  # VecSwap (simulation.cpp:85)
         E = self.E
         self.E = 2.0 * self.Ep - E
         self.B = self.B - self.geom.dt * curl_positive(
-            self.Ep, self.geom.cell_steps, self.geom.bounds)
+            self.Ep, self.geom.cell_steps, self.geom.bounds, mesh)
 
     def _host_sync(self) -> None:
         """The step's one fused device-to-host read: the consistency
         norm, each live species' renormalization statistics and
         migration load.  The two solves' results are already on the
-        host; their non-convergence raises here, as in the JAX scheme."""
+        host; their non-convergence raises here, as in the JAX scheme.
+        On a slab the vector is all-gathered first, in one collective:
+        the squared norm and each migration's particle counts are summed
+        over the ranks, its largest cell load is their maximum, and the
+        statistics are already every rank's."""
         parts = [self._consistency_d.reshape(1)]
         live = [sp for sp in self.species
                 if getattr(sp, "_stats_d", None) is not None]
         for sp in live:
             parts.append(sp._stats_d)
             load = getattr(sp, "_load", None)
-            parts.append(load.to(self.dtype) if load is not None
-                         else torch.full((3,), -1.0, dtype=self.dtype,
+            parts.append(load.reshape(6).to(self.dtype) if load is not None
+                         else torch.full((6,), -1.0, dtype=self.dtype,
                                          device=self.device))
-        vals = torch.cat([v.to(self.dtype) for v in parts]).cpu().numpy() \
-            .astype(np.float64)
+        vec = torch.cat([v.to(self.dtype) for v in parts])
+        mesh = mesh_of(self.geom)
+        if mesh is None:
+            ranks = vec.cpu().numpy().astype(np.float64)[None]
+        else:
+            ranks = mesh.allgather(vec).cpu().numpy().astype(np.float64)
+        vals = ranks[0]
+        if mesh is not None:
+            vals[0] = np.sqrt(ranks[:, 0].sum())
 
         adv_its, adv_rnorm, adv_ok = self._adv_solve
         corr_its, corr_rnorm, corr_ok = self._corr_solve
@@ -257,6 +291,8 @@ class EcsimcorrSimulation(EcsimSimulation):
                 f"|r|={corr_rnorm:.3e}")
         self.correct_ksp_iters = int(corr_its)
         self.current_consistency_norm = float(vals[0])
+        self.correct_ksp_history.append(self.correct_ksp_iters)
+        self.consistency_history.append(self.current_consistency_norm)
         log.info("  Norm of the difference in ECSIM and Esirkepov "
                  "currents: %.7f", self.current_consistency_norm)
         off = 1
@@ -265,12 +301,15 @@ class EcsimcorrSimulation(EcsimSimulation):
             sp.corr_stats = dict(
                 lambda_dK=float(s[0]), pred_dK=float(s[1]),
                 corr_dK=float(s[2]), pred_w=float(s[3]), corr_w=float(s[4]))
-            load = vals[off + 5:off + 8]
+            loads = ranks[:, off + 5:off + 11].reshape(-1, 2, 3)
+            load = np.concatenate([loads[..., :1].max(axis=0),
+                                   loads[..., 1:].sum(axis=0)],
+                                  axis=1).max(axis=0)
             if load[0] >= 0:
-                self.check_load(sp, load.astype(np.int64))
+                self.check_load(sp, load.astype(np.int64), reduced=True)
             sp._load = None
             sp._stats_d = None
-            off += 8
+            off += 11
 
     def timestep_implementation(self, t: int) -> None:
         phases = [
