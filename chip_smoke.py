@@ -121,14 +121,19 @@ Phases:
     the ranks join with gloo, staged through pinned host buffers, and
     the phase first shows NCCL's refusal; two ranks on one card give no
     scaling figure): in the phase's own two ranks, K1's slab form
-    (``cheb_sweep``, ``cheb_sweep_f64``: one launch a sweep, 11
-    exchanges an apply) on each rank's slab of phase 3's 32^3 field
+    (``cheb_sweep``, ``cheb_sweep_f64``: one deep-ghost exchange and one
+    cooperative launch a segment, ceil(11 / min(11, t)) segments an apply
+    on t planes: 1 at t = 16) on each rank's slab of phase 3's 32^3
+    field, and in float64 also of a 16^3 field (t = 8: 2 segments),
     within 1e-5 (float32) and 1e-12 (float64) of its slab twin and
-    bitwise equal to the one-launch K1 on the whole field, timed (a
-    sweep and an apply); K3's z pass with ghost planes bitwise against
-    its twin on phase 3's drifted state; 1 + 10 fused float32 steps of
-    phase 4's state (KSP within one of ``ITERS`` a step, step ms, bytes
-    and exchange ms a step a rank); then ``runtime.cli.main`` with
+    bitwise equal to the one-launch K1 on the whole field, its launches
+    and exchanges an apply counted, timed (a segment's launch and an
+    apply with its exchanges); K3's z pass with ghost planes bitwise
+    against its twin on phase 3's drifted state; 1 + 10 fused float32
+    steps of phase 4's state (KSP within one of ``ITERS`` a step, step
+    ms, bytes, exchange ms and collectives a step a rank, the
+    collectives within 10% of ``MESH_CALLS_PREDICTED``); then
+    ``runtime.cli.main`` with
     ``"Mesh": 2`` from this process (it starts the ranks; each writes
     its ``--report``) on phase 6's config, float32 ``free`` (tables
     within 1e-4 of phase 6's one-rank run, the energy identity within
@@ -141,8 +146,12 @@ Phases:
     1 + 3) and 16^3 x 20 ppc in float64 (1 + 2 steps): each config's
     one-rank run on the card, then one spawn of two ranks that run
     ``runtime.cli.main`` on every ``"Mesh": 2`` config as ranks of one
-    group (each step timed, its bytes, exchange ms and collectives
-    counted; each rank's ``--report`` printed): tables within 1e-4
+    group (each step timed, its bytes, exchange ms, collectives, K1
+    slab applies and launches counted; each rank's ``--report``
+    printed): K1's ghost exchanges and launches ceil(11 / min(11, t)) an
+    apply, the float32 runs' collectives a step within 10% of
+    ``MESH_CALLS_PREDICTED``, no collective handed a host tensor (a
+    counting wrapper around ``SlabMesh``'s collectives), tables within 1e-4
     (float32) and 1e-9 (float64) of each column's scale of the one-rank
     run, the solvers' iterations equal (within one a step in float32),
     every particle kept, each kernel of the run launched on each rank;
@@ -176,8 +185,9 @@ the eccapfim path, the two ecsimcorr runs, the calibration path, the
 both ranks (``launches_mesh2``), its launches over each run of phase
 20, both ranks (``launches_mesh2_<run>``), K6 on a slab under its rows'
 ``slab`` key, and the slab form of K1 as rows of its
-own (``cheb_sweep``, ``cheb_sweep_f64``: a sweep's times, an apply's in
-``apply_ms``), its error against its twin, its times
+own (``cheb_sweep``, ``cheb_sweep_f64`` with the 16^3 case under ``t8``:
+a segment launch's times, an apply's with its exchanges in ``apply_ms``),
+its error against its twin, its times
 (``ms``, ``call_ms``), its twin's and its bound; the float64 rows also
 ``registers``, ``smem_bytes`` (a block), ``threads``, ``warps_per_sm``
 and ``local_bytes``.  The ``prims``
@@ -269,7 +279,7 @@ KERNELS = {
                    "xpic_tpu/ops/pallas_ecsim.py:72"),
     "prims": ("xpic_tpu_torch/csrc/prims.cu",
               "benchmarks/profile_pallas_prims.py:27"),
-    # K1's slab form, one sweep a launch (phase 19)
+    # K1's slab form, one deep-ghost segment a launch (phase 19)
     "cheb_sweep": ("xpic_tpu_torch/csrc/cheb_step.cu",
                    "xpic_tpu/ops/pallas_stencil.py:120"),
 }
@@ -777,9 +787,11 @@ def main() -> None:
             row["also_replaces"] = ["xpic_tpu/ops/neighbor_rebin.py:496",
                                     "xpic_tpu/ops/neighbor_rebin.py:525"]
         # What the kernel loses against its bound over every path: timed
-        # calls x (ms - bound_ms).  Every wrapper call is one launch, a K1
-        # apply of all 12 Chebyshev iterations included.
-        calls = sum(v for k, v in row.items() if k.startswith("launches_"))
+        # calls x (ms - bound_ms).  Every wrapper call is one launch: a K1
+        # apply of all 12 Chebyshev iterations, a slab segment of its
+        # sweeps.
+        calls = sum(v for k, v in row.items()
+                    if k.startswith("launches_") and k != "launches_an_apply")
         row["excess_ms"] = calls * (row["ms"] - row["bound_ms"])
         rows.append(row)
     order = sorted(rows, key=lambda r: -r["excess_ms"])
@@ -2256,9 +2268,19 @@ MESH_KERNELS = {
                "slot_gather"),
     "f64": ("cheb_sweep_f64", "slot_gather_f64", "ecsim_fill_f64"),
 }
-# Bytes an element of one middle sweep of the slab form reads and writes
-# once (d in, x and r in and out, d out), in elements of the field.
-SWEEP_ACCESSES = 6
+# Collectives a step a rank predicted for phase 19's fused step and
+# phase 20's float32 runs at 32^3 x 50 ppc with one K1 ghost exchange an
+# apply (t = 16 planes); each is checked within MESH_CALLS_SLACK.
+MESH_CALLS_PREDICTED = {"fused": 55, "ecsimcorr_free": 96,
+                        "ecsimcorr_blocks": 96, "eccapfim": 55.5,
+                        "basic": 11}
+MESH_CALLS_SLACK = 0.1
+
+
+def cheb_segments(planes):
+    """K1's slab form: exchanges (and launches) an apply on a slab of
+    ``planes`` planes at degree 12."""
+    return -(-11 // min(11, planes))
 
 
 def nccl_probe():
@@ -2300,30 +2322,33 @@ def nccl_probe():
     return rcs, lines[:4]
 
 
-def _slab_sweep_fn(rhs_slab, shift, sgeom, k):
-    """One launch of sweep ``k`` of the slab form on ghost-padded copies
-    of ``rhs_slab`` (the kernel alone, for its time)."""
+def _slab_segment_fn(rhs_slab, shift, sgeom):
+    """One launch of the slab form's first segment on this rank's slab,
+    padded with its ghost planes (zeros here: the kernel alone, for its
+    time).  Returns the launch and its sweeps."""
     from xpic_tpu_torch import kernels
-    from xpic_tpu_torch.ops.stencil_kernel import _beta_lam
+    from xpic_tpu_torch.ops.stencil_kernel import _beta_lam, _depths, \
+        slab_schedule
 
     n = sgeom.nz
-    pad = (3, n + 2, sgeom.ny, sgeom.nx)
+    g, segs = slab_schedule(12, n)
+    lo, hi = _depths(sgeom.mesh, g)
+    k0, count = segs[0]
+    pad = (3, lo + n + hi, sgeom.ny, sgeom.nx)
     rhs_p = torch.zeros(pad, dtype=rhs_slab.dtype, device=rhs_slab.device)
-    rhs_p[:, 1:n + 1] = rhs_slab
-    d_in = rhs_p.clone()
-    d_out = torch.zeros_like(rhs_p)
-    x = torch.zeros_like(rhs_slab)
-    r = rhs_slab.clone()
+    rhs_p[:, lo:lo + n] = rhs_slab
+    x, r, d0, d1 = torch.zeros((4,) + pad, dtype=rhs_slab.dtype,
+                               device=rhs_slab.device)
     beta, beta_lam = _beta_lam(sgeom, sgeom.dt)
     name = kernels.entry("cheb_sweep", rhs_slab)
 
-    def sweep():
+    def segment():
         kernels.call(name, rhs_p.data_ptr(), shift.data_ptr(), x.data_ptr(),
-                     r.data_ptr(), d_in.data_ptr(), d_out.data_ptr(),
-                     sgeom.nx, sgeom.ny, n, 1, 1, 1, 1, 1.0 / sgeom.dx,
-                     1.0 / sgeom.dy, 1.0 / sgeom.dz, beta, beta_lam, k, 12,
-                     device=rhs_slab.device)
-    return sweep
+                     r.data_ptr(), d0.data_ptr(), d1.data_ptr(), sgeom.nx,
+                     sgeom.ny, lo + n + hi, 1, 1, 1.0 / sgeom.dx,
+                     1.0 / sgeom.dy, 1.0 / sgeom.dz, beta, beta_lam, k0,
+                     count, 12, device=rhs_slab.device)
+    return segment, count
 
 
 def _fixed_ms(fn, reps):
@@ -2343,14 +2368,22 @@ def _fixed_ms(fn, reps):
 
 
 def _mesh_cheb(geom, mesh, dtype):
-    """K1's slab form on this rank's 16 planes of phase 3's 32^3 field
-    against its slab twin and the one-launch K1 on the whole field."""
+    """K1's slab form on this rank's slab of a seeded field on ``geom``
+    against its slab twin and the one-launch K1 on the whole field:
+    launches and exchanges an apply, a segment launch's time and an
+    apply's with its exchanges.  The bound counts an apply's kernel work
+    as K1's row does (CHEB_FLOPS operations an element of the own planes,
+    rhs read and x written once), a launch's as its share; the exchange
+    is stated apart (its ms and bytes an apply)."""
+    import torch.distributed as dist
+
     from xpic_tpu_torch import kernels
     from xpic_tpu_torch.benchmarks import call_ms, device_ms
     from xpic_tpu_torch.ops.stencil_kernel import (
         cheb_matM_inv,
         cheb_matM_inv_slab,
         cheb_matM_inv_slab_plain,
+        slab_schedule,
     )
 
     dev = torch.device("cuda", 0)
@@ -2360,39 +2393,54 @@ def _mesh_cheb(geom, mesh, dtype):
                        dtype=torch.float32, device=dev).to(dtype)
     shift = torch.tensor(0.37, dtype=torch.float32, device=dev).to(dtype)
     n = sgeom.nz
+    g, segs = slab_schedule(12, n)
     rhs_s = rhs[:, mesh.z0:mesh.z0 + n].contiguous()
     cheb = dict(degree=12, dt=geom.dt)
     name = kernels.entry("cheb_sweep", rhs)
     before = kernels.LAUNCHES[name]
     x_k = cheb_matM_inv_slab(rhs_s, shift, geom=sgeom, **cheb)
-    sweeps = kernels.LAUNCHES[name] - before
+    launches = kernels.LAUNCHES[name] - before
     x_p = cheb_matM_inv_slab_plain(rhs_s, shift, geom=sgeom, **cheb)
     x_one = cheb_matM_inv(rhs, shift, geom=geom, **cheb)[:, mesh.z0:
                                                            mesh.z0 + n]
     torch.cuda.synchronize()
     err = float((x_k - x_p).abs().max())
-    sweep = _slab_sweep_fn(rhs_s, shift, sgeom, 5)
-    elem = 3 * n * geom.ny * geom.nx
-    sweep_bytes = SWEEP_ACCESSES * elem * rhs.element_size()
+    segment, sweeps = _slab_segment_fn(rhs_s, shift, sgeom)
+    for rank in range(mesh.world):  # the launch timed while the other waits
+        dist.barrier()
+        if rank == mesh.rank:
+            seg_ms = device_ms(segment, dev)
+            seg_call = call_ms(segment, dev)
+    dist.barrier()
+    own = rhs_s.numel()
+    apply_bound = bound(2 * own * rhs.element_size(), CHEB_FLOPS * own,
+                        F64_FLOPS if dtype == torch.float64 else F32_FLOPS)
+    reps = 10
     mesh.reset_counts()
     apply_ms = _fixed_ms(lambda: cheb_matM_inv_slab(rhs_s, shift,
-                                                    geom=sgeom, **cheb), 10)
-    exch = mesh.calls["cheb_ghosts"] / 11
+                                                    geom=sgeom, **cheb), reps)
+    applies = reps + 1  # _fixed_ms's warm-up call too
+    exch = mesh.calls["cheb_ghosts"] / applies
+    exch_ms = mesh.seconds * 1e3 / applies
+    exch_bytes = mesh.bytes_sent / applies
     apply_call = call_ms(lambda: cheb_matM_inv_slab(rhs_s, shift,
                                                     geom=sgeom, **cheb),
                          torch.device("cuda", 0), reps=10)
     plain_apply = _fixed_ms(lambda: cheb_matM_inv_slab_plain(
         rhs_s, shift, geom=sgeom, **cheb), 5)
     return dict(
+        planes=n, ghost_planes=g, segments=len(segs),
         max_abs_err=err, rel_err=err / float(x_p.abs().max()),
         bitwise_one_launch=bool(torch.equal(x_k, x_one)),
-        launches_an_apply=sweeps,
-        ms=device_ms(sweep, dev), call_ms=call_ms(sweep, dev),
-        apply_ms=apply_ms, apply_call_ms=apply_call,
-        plain_ms=plain_apply / 12, plain_apply_ms=plain_apply,
-        bound_ms=sweep_bytes / HBM_BPS * 1e3, bound_by="bytes",
-        apply_bound_ms=12 * sweep_bytes / HBM_BPS * 1e3,
-        exchanges_an_apply=exch, library_ms=None)
+        launches_an_apply=launches, exchanges_an_apply=exch,
+        sweeps_a_launch=sweeps,
+        ms=seg_ms, call_ms=seg_call, apply_ms=apply_ms,
+        apply_call_ms=apply_call,
+        exchange_ms_an_apply=exch_ms, exchange_bytes_an_apply=exch_bytes,
+        plain_ms=plain_apply / len(segs), plain_apply_ms=plain_apply,
+        bound_ms=apply_bound["bound_ms"] / len(segs),
+        bound_by=apply_bound["bound_by"],
+        apply_bound_ms=apply_bound["bound_ms"], library_ms=None)
 
 
 def _mesh_k3(geom, mesh):
@@ -2496,6 +2544,11 @@ def _mesh_rank(rank, init, work):
                "backend": info.backend, "shared_card": info.shared_card,
                "cheb_sweep": _mesh_cheb(geom, mesh, torch.float32),
                "cheb_sweep_f64": _mesh_cheb(geom, mesh, torch.float64),
+               "cheb_sweep_f64_t8": _mesh_cheb(
+                   Geometry(dx=0.5, dy=0.5, dz=0.5, dt=1.5,
+                            nx=MESH_F64_SIDE, ny=MESH_F64_SIDE,
+                            nz=MESH_F64_SIDE, nt=1),
+                   make_mesh(MESH, MESH_F64_SIDE), torch.float64),
                "k3": _mesh_k3(geom, mesh), "fused": _mesh_fused(geom, mesh)}
         with open(os.path.join(work, f"rank{rank}.json"), "w") as fh:
             json.dump(res, fh)
@@ -2575,24 +2628,33 @@ def mesh_path(name, card, cli_one_out, cli_one_ksp):
             + "; ".join(r["join"] for r in ranks))
     for r in ranks:
         for kname, tol in (("cheb_sweep", CHEB_TOL),
-                           ("cheb_sweep_f64", F64_TOL)):
+                           ("cheb_sweep_f64", F64_TOL),
+                           ("cheb_sweep_f64_t8", F64_TOL)):
             row = r[kname]
-            log(f"[19 mesh] rank {r['rank']} {kname}: 16-plane slab of the "
-                f"32^3 field, max|d|/max|x| {row['rel_err']:.3e} against "
-                f"the slab twin (tol {tol}), bitwise the one-launch K1: "
+            want = cheb_segments(row["planes"])
+            log(f"[19 mesh] rank {r['rank']} {kname}: {row['planes']}-plane "
+                f"slab, {row['ghost_planes']} ghost planes a side, "
+                f"max|d|/max|x| {row['rel_err']:.3e} against the slab twin "
+                f"(tol {tol}), bitwise the one-launch K1: "
                 f"{row['bitwise_one_launch']}, {row['launches_an_apply']} "
-                f"launches and {row['exchanges_an_apply']:.0f} exchanges an "
-                f"apply; a sweep {row['ms']:.4f} ms (call "
-                f"{row['call_ms']:.4f}), bound {row['bound_ms']:.4f}; an "
-                f"apply {row['apply_ms']:.4f} ms (call "
-                f"{row['apply_call_ms']:.4f}), bound "
-                f"{row['apply_bound_ms']:.4f}, twin "
+                f"launches and {row['exchanges_an_apply']:.2f} exchanges an "
+                f"apply (predicted {want}); a launch of "
+                f"{row['sweeps_a_launch']} sweeps {row['ms']:.4f} ms (call "
+                f"{row['call_ms']:.4f}), bound {row['bound_ms']:.5f} "
+                f"({row['bound_by']}); an apply {row['apply_ms']:.4f} ms "
+                f"(call {row['apply_call_ms']:.4f}; its exchanges "
+                f"{row['exchange_ms_an_apply']:.4f} ms, "
+                f"{row['exchange_bytes_an_apply']:.0f} bytes sent), bound "
+                f"{row['apply_bound_ms']:.5f} without the exchange, twin "
                 f"{row['plain_apply_ms']:.4f} | {card}")
             check(row["rel_err"] <= tol, f"{kname} differs from its twin")
             check(row["bitwise_one_launch"],
                   f"{kname} differs from the one-launch K1")
-            check(row["launches_an_apply"] == 12,
-                  f"{kname}: {row['launches_an_apply']} launches an apply")
+            check(row["launches_an_apply"] == want
+                  and row["exchanges_an_apply"] == want,
+                  f"{kname}: {row['launches_an_apply']} launches and "
+                  f"{row['exchanges_an_apply']} exchanges an apply, not "
+                  f"{want}")
         k3 = r["k3"]
         log(f"[19 mesh] rank {r['rank']} rebin_place z pass with ghost "
             f"planes: bitwise {k3['bitwise']} ({k3['arrivals']} movers "
@@ -2609,6 +2671,18 @@ def mesh_path(name, card, cli_one_out, cli_one_ksp):
             f"{f['bytes_step']:.0f}, exchange ms a step "
             f"{f['exchange_ms_step']:.3f}, collectives a step "
             f"{f['calls_step']}, launches {f['launches']} | {card}")
+        calls = sum(f["calls_step"].values())
+        ghosts = f["calls_step"].get("cheb_ghosts", 0)
+        want = MESH_CALLS_PREDICTED["fused"]
+        log(f"[19 mesh] rank {r['rank']} fused: {calls:.1f} collectives a "
+            f"step (predicted ~{want}), {ghosts:.1f} of them K1's ghost "
+            f"exchanges for {f['launches'].get('cheb_sweep', 0) / MESH_STEPS}"
+            f" K1 launches a step")
+        check(abs(calls - want) <= MESH_CALLS_SLACK * want,
+              f"fused: {calls} collectives a step, predicted ~{want}")
+        check(round(ghosts * MESH_STEPS)
+              == f["launches"].get("cheb_sweep", 0),
+              "fused: K1's ghost exchanges differ from its launches")
         check(f["finite"], "the 2-rank fused run diverged")
         check(all(abs(a - b) <= 1 for a, b in zip(f["iters"],
                                                    ITERS["fused"])),
@@ -2695,6 +2769,7 @@ def mesh_path(name, card, cli_one_out, cli_one_ksp):
         _mesh_launch_gate("f64", reps, "cli f64")
     rows = {k: dict(ranks[0][k], launches=total.get(k, 0))
             for k in ("cheb_sweep", "cheb_sweep_f64")}
+    rows["cheb_sweep_f64"]["t8"] = ranks[0]["cheb_sweep_f64_t8"]
     rows["rebin_place_zghost"] = ranks[0]["k3"]
     return total, rows
 
@@ -2817,22 +2892,67 @@ def _mesh_k6(geom, mesh):
     return out
 
 
+# SlabMesh's collectives, each checked for an input on the host while the
+# run's data is on the card (NCCL takes card tensors only).
+MESH_COLLECTIVES = ("exchange", "_all_reduce", "allgather",
+                    "allgather_rows", "gather_to_root")
+
+
+@contextlib.contextmanager
+def _counted_collectives(host):
+    """Count in ``host`` (method -> calls) every SlabMesh collective
+    handed a tensor that lies on the host."""
+    from xpic_tpu_torch.parallel.mesh import SlabMesh
+
+    saved = {m: getattr(SlabMesh, m) for m in MESH_COLLECTIVES}
+
+    def wrap(meth, fn):
+        def counted(self, *args, **kwargs):
+            if any(torch.is_tensor(a) and a.device.type == "cpu"
+                   for a in args):
+                host[meth] = host.get(meth, 0) + 1
+            return fn(self, *args, **kwargs)
+        return counted
+
+    for m, fn in saved.items():
+        setattr(SlabMesh, m, wrap(m, fn))
+    try:
+        yield
+    finally:
+        for m, fn in saved.items():
+            setattr(SlabMesh, m, fn)
+
+
 def _scheme_rank(rank, init, work):
     """One rank of phase 20: ``runtime.cli.main`` on each run's
     ``"Mesh": 2`` config as a rank of the group (a launched group, as
-    under ``torchrun``), each step timed and its collectives counted,
-    then K6 on the slab; what it finds goes to ``work/rank<r>.json``."""
+    under ``torchrun``), each step timed and its collectives, K1 slab
+    applies and launches counted, every collective handed a host tensor
+    counted, then K6 on the slab; what it finds goes to
+    ``work/rank<r>.json``."""
     from xpic_tpu_torch import kernels, schemes
     from xpic_tpu_torch.commands import particles_load
     from xpic_tpu_torch.config import Geometry
+    from xpic_tpu_torch.ops import stencil_kernel
     from xpic_tpu_torch.parallel.mesh import make_mesh
     from xpic_tpu_torch.runtime import cli, distributed
 
     distributed.join(init, rank, MESH, timeout=MESH_RANK_TIMEOUT_S)
     try:
         kernels.load()
-        res = {"rank": rank, "runs": {}}
+        res = {"rank": rank, "runs": {}, "host_inputs": {}}
         build = schemes.build_simulation
+        slab_apply = stencil_kernel.cheb_matM_inv_slab
+        applies = [0]
+
+        def counted_apply(*args, **kwargs):
+            applies[0] += 1
+            return slab_apply(*args, **kwargs)
+
+        def cheb_launches():
+            return (kernels.LAUNCHES["cheb_sweep"]
+                    + kernels.LAUNCHES["cheb_sweep_f64"])
+
         for name, (_, _, _, _, env) in MESH_RUNS.items():
             steps = []
 
@@ -2844,6 +2964,7 @@ def _scheme_rank(rank, init, work):
                     torch.cuda.synchronize()
                     b0, s0 = mesh.bytes_sent, mesh.seconds
                     c0 = dict(mesh.calls)
+                    a0, l0 = applies[0], cheb_launches()
                     t0 = time.perf_counter()
                     step(t)
                     torch.cuda.synchronize()
@@ -2853,23 +2974,29 @@ def _scheme_rank(rank, init, work):
                         exchange_ms=(mesh.seconds - s0) * 1e3,
                         calls={k: v - c0.get(k, 0)
                                for k, v in mesh.calls.items()
-                               if v - c0.get(k, 0)}))
+                               if v - c0.get(k, 0)},
+                        cheb_applies=applies[0] - a0,
+                        cheb_launches=cheb_launches() - l0))
 
                 sim.timestep_implementation = timed_step
                 return sim
 
             rep = os.path.join(work, name, "report.json")
             schemes.build_simulation = timed_build
+            stencil_kernel.cheb_matM_inv_slab = counted_apply
             particles_load.seed(5489)
+            host = {}
             try:
-                with run_env(env):
+                with run_env(env), _counted_collectives(host):
                     rc = cli.main([os.path.join(work, name, "cfg.json"),
                                    "--quiet", "--report", rep])
             finally:
                 schemes.build_simulation = build
+                stencil_kernel.cheb_matM_inv_slab = slab_apply
             if rc != 0:
                 raise RuntimeError(f"{name}: cli.main returned {rc}")
             res["runs"][name] = steps
+            res["host_inputs"][name] = host
         geom = Geometry(dx=0.5, dy=0.5, dz=0.5, dt=1.5, nx=SIDE, ny=SIDE,
                         nz=SIDE, nt=1)
         res["k6"] = _mesh_k6(geom, make_mesh(MESH, SIDE))
@@ -2966,6 +3093,14 @@ def mesh_schemes_path(name, card):
                 for st in timed:
                     for k, v in st["calls"].items():
                         calls[k] = calls.get(k, 0) + v / len(timed)
+                n_calls = sum(calls.values())
+                applies = sum(st["cheb_applies"] for st in timed)
+                k1_launches = sum(st["cheb_launches"] for st in timed)
+                ghosts = sum(st["calls"].get("cheb_ghosts", 0)
+                             for st in timed)
+                host = r["host_inputs"][run]
+                e = cheb_segments(side // MESH)
+                want = MESH_CALLS_PREDICTED.get(run)
                 hist = {"ksp": rep["ksp_history"],
                         "correct": rep.get("correct_ksp_history", []),
                         "outer": rep.get("outer_history", [])}
@@ -2978,11 +3113,28 @@ def mesh_schemes_path(name, card):
                     f"{statistics.median(s['exchange_ms'] for s in timed):.3f}"
                     f", bytes sent a step "
                     f"{statistics.median(s['bytes'] for s in timed):.0f}, "
-                    f"collectives a step {sum(calls.values()):.1f} "
-                    f"{ {k: round(v, 1) for k, v in calls.items()} }; "
+                    f"collectives a step {n_calls:.1f} "
+                    f"{ {k: round(v, 1) for k, v in calls.items()} } "
+                    f"(predicted {want if want is not None else '-'}; "
+                    f"{applies / len(timed):.1f} K1 slab applies a step, "
+                    f"{ghosts} ghost exchanges and {k1_launches} launches "
+                    f"for {applies} applies, {e} each predicted; with 11 "
+                    f"exchanges an apply "
+                    f"{n_calls + applies * (11 - e) / len(timed):.1f}); "
+                    f"collectives handed a host tensor {host}; "
                     f"iterations {hist} (one rank ksp {ref['ksp']}, correct "
                     f"{ref['correct']}, outer {ref['outer']}); particles "
                     f"{rep['count']}; launches {rep['launches']} | {card}")
+                check(ghosts == k1_launches == e * applies,
+                      f"{label}: {ghosts} K1 ghost exchanges and "
+                      f"{k1_launches} launches for {applies} applies, not "
+                      f"{e} each")
+                check(want is None
+                      or abs(n_calls - want) <= MESH_CALLS_SLACK * want,
+                      f"{label}: {n_calls} collectives a step, predicted "
+                      f"{want}")
+                check(not host, f"{label}: collectives handed a host "
+                      f"tensor on the card: {host}")
                 for key in ("ksp", "correct", "outer"):
                     a, b = hist[key], ref[key]
                     check(len(a) == len(b) and all(

@@ -18,8 +18,10 @@ The four kernels with a float64 instantiation (Chebyshev, slot gather,
 segment fields, fill) are also held against their twins in float64, on
 the same inputs cast, within 1e-12 of the output's max; the wrappers
 take float64 and refuse float16 and bfloat16.  The Chebyshev kernel's
-slab form (one launch a sweep) and the place kernel's ghost-plane z pass
-give the whole-grid kernels' bits on one rank's slab of the whole grid.
+slab form (a deep-ghost exchange and a cooperative launch a segment,
+ceil(11 / min(11, t)) of each an apply on t planes) and the place
+kernel's ghost-plane z pass give the whole-grid kernels' bits on one
+rank's slab of the whole grid.
 
     python -m pytest --noconftest -o addopts="" tests/test_torch_kernels.py -q
 """
@@ -57,7 +59,8 @@ from xpic_tpu_torch.ops.stencil_kernel import (
     cheb_matM_inv,
     cheb_matM_inv_plain,
 )
-from xpic_tpu_torch.parallel.mesh import SlabMesh
+
+from torch_mesh_worker import one_rank_mesh
 
 pytestmark = pytest.mark.gpu
 
@@ -145,18 +148,28 @@ def test_cheb_kernel_matches_twin(dev, bounds):
         assert got.dtype == dtype
         rel = float((got - ref).abs().max() / ref.abs().max())
         assert rel <= tol, name
-        # The slab form (``cheb_sweep``, one launch a sweep) on one rank's
-        # slab of the whole grid: its own boundary planes as ghosts on a
-        # periodic z, none on the reflective one; the one-launch bits.
-        mesh = SlabMesh(0, 1, geom.nz, bounds[2] == "periodic", None)
-        if mesh.up is not None:
-            mesh.exchange = lambda up, dn, kind: (up.clone(), dn.clone())
+        # The slab form (``cheb_sweep``: a segment of sweeps a launch, one
+        # ghost exchange a segment) on one rank's slab of the whole grid:
+        # its own boundary planes as ghosts on a periodic z, none on the
+        # reflective one; the one-launch bits on t = 1, 3, 8, 11, 16 and
+        # the whole 32 planes, in ceil(11 / min(11, t)) launches and
+        # exchanges.
         sweep = name.replace("cheb_step", "cheb_sweep")
-        before = kernels.LAUNCHES[sweep]
-        slab = cheb_matM_inv(rhs, shift, geom=geom.slab(mesh), degree=12,
-                             dt=geom.dt)
-        assert kernels.LAUNCHES[sweep] == before + 12
-        assert torch.equal(slab, got), sweep
+        for t in (1, 3, 8, 11, 16, 32):
+            tgeom = Geometry(dx=0.5, dy=0.4, dz=0.6, dt=1.5, nx=32, ny=32,
+                             nz=t, nt=1, bounds=bounds)
+            whole = got if t == geom.nz else cheb_matM_inv(
+                rhs[:, :t].contiguous(), shift, geom=tgeom, degree=12,
+                dt=geom.dt)
+            mesh = one_rank_mesh(t, bounds[2] == "periodic")
+            before = kernels.LAUNCHES[sweep]
+            slab = cheb_matM_inv(rhs[:, :t].contiguous(), shift,
+                                 geom=tgeom.slab(mesh), degree=12,
+                                 dt=geom.dt)
+            segments = -(-11 // min(11, t))
+            assert kernels.LAUNCHES[sweep] == before + segments, (sweep, t)
+            assert mesh.calls["cheb_ghosts"] == segments, (sweep, t)
+            assert torch.equal(slab, whole), (sweep, t)
 
 
 def test_cheb_kernel_one_launch_at_every_size(dev):

@@ -237,11 +237,13 @@ def test_collective_volume_stays_o_halo(op_runs):
     """The bytes one ECSIM step sends grow by less than 1.5x from nz = 8
     to nz = 16 on two ranks: the halos, the folds and the migration's
     leavers scale with the cut surface, not the volume
-    (``tests/test_multichip.py:283``)."""
+    (``tests/test_multichip.py:283``).  A Chebyshev apply on a slab of
+    t = 3 planes makes ceil(11 / 3) = 4 ghost exchanges."""
     _, ranks = op_runs
     for r in ranks:
         small, large = r["halo_bytes"]
         assert 0 < small and large < 1.5 * small
+        assert int(r["cheb_exchanges"]) == 4
 
 
 def test_one_rank_step_makes_no_collective(tmp_path, monkeypatch):

@@ -1,7 +1,8 @@
 """The port's Krylov solvers and Chebyshev preconditioner against the JAX
 package.  GMRES must take the same iterations and agree to 1e-12 in
 f64; the Chebyshev twin must match the JAX Pallas kernel (interpret
-mode) to 1e-5 relative in f32 and the XLA recurrence to 1e-12 in f64."""
+mode) to 1e-5 relative in f32 and the XLA recurrence to 1e-12 in f64,
+and its slab form give its bits on one rank's slab of 1 to 12 planes."""
 
 import jax
 import jax.numpy as jnp
@@ -14,13 +15,19 @@ from xpic_tpu.ops.pallas_stencil import cheb_matM_inv_pallas
 from xpic_tpu.solvers import cg as jcg
 from xpic_tpu.solvers import gmres as jgmres
 from xpic_tpu.solvers import spectral as jspectral
-from xpic_tpu_torch.ops.stencil_kernel import cheb_matM_inv_plain
+from xpic_tpu_torch.config import Geometry as TGeometry
+from xpic_tpu_torch.ops.stencil_kernel import (
+    cheb_matM_inv_plain,
+    cheb_matM_inv_slab_plain,
+)
 from xpic_tpu_torch.solvers import cg as tcg
 from xpic_tpu_torch.solvers import gmres as tgmres
 from xpic_tpu_torch.solvers.spectral import (
     make_matM_preconditioner,
     matM_bounds,
 )
+
+from torch_mesh_worker import one_rank_mesh
 
 torch.set_num_threads(1)
 
@@ -120,6 +127,24 @@ def test_cheb_plain_matches_xla_f64(bounds):
     got = make_matM_preconditioner(geom, geom.dt)(torch.as_tensor(rhs),
                                                   shift)
     assert _rel(got.numpy(), ref) <= 1e-12
+    # The slab twin on one rank's slab of t = 1..12 planes (its own
+    # boundary planes as the ghosts of a periodic z, no neighbour on the
+    # other): the whole grid's bits, in ceil(11 / min(11, t)) exchanges.
+    for t in range(1, 13):
+        tgeom = TGeometry(dx=0.5, dy=0.4, dz=0.6, dt=1.5, nx=6, ny=5, nz=t,
+                          nt=1, bounds=bounds)
+        mesh = one_rank_mesh(t, bounds[2] == "periodic")
+        for dtype in (torch.float64, torch.float32):
+            rhs_t = torch.tensor(rng.standard_normal((3,) + tgeom.shape),
+                                 dtype=dtype)
+            shift_t = torch.tensor(0.37, dtype=dtype)
+            kw = dict(degree=12, dt=tgeom.dt)
+            whole = cheb_matM_inv_plain(rhs_t, shift_t, geom=tgeom, **kw)
+            before = mesh.calls["cheb_ghosts"]
+            slab = cheb_matM_inv_slab_plain(rhs_t, shift_t,
+                                            geom=tgeom.slab(mesh), **kw)
+            assert torch.equal(slab, whole), (t, dtype)
+            assert mesh.calls["cheb_ghosts"] - before == -(-11 // min(11, t))
 
 
 @pytest.mark.parametrize("shift", [0.0, 0.37])

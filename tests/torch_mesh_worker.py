@@ -76,6 +76,21 @@ def slab_rows(st, geom, mesh):
     return BinnedState(r=st.r[rows], p=st.p[rows], valid=st.valid[rows])
 
 
+def one_rank_mesh(nz, periodic):
+    """A one-rank ``SlabMesh`` over ``nz`` planes: on a periodic z its
+    exchange returns the slab's own boundary planes (counted as a
+    collective), on another z there is no neighbour."""
+    from xpic_tpu_torch.parallel.mesh import SlabMesh
+
+    mesh = SlabMesh(0, 1, nz, periodic, None)
+    if mesh.up is not None:
+        def exchange(to_up, to_dn, kind):
+            mesh.calls[kind] += 1
+            return to_up.clone(), to_dn.clone()
+        mesh.exchange = exchange
+    return mesh
+
+
 def zslab(F, mesh):
     n = F.shape[-3] // mesh.world
     return F.narrow(-3, mesh.rank * n, n).contiguous()
@@ -240,6 +255,18 @@ def halo_bytes(mesh_for):
     return np.array(out)
 
 
+def cheb_exchanges(mesh):
+    """K1's ghost exchanges in one slab apply on this rank's z slab of the
+    op checks' grid (the slab twin runs the kernel's schedule)."""
+    from xpic_tpu_torch.ops.stencil_kernel import cheb_matM_inv_slab_plain
+
+    geom = geometry().slab(mesh)
+    rhs = torch.ones((3, geom.nz, NY, NX), dtype=torch.float64)
+    before = mesh.calls["cheb_ghosts"]
+    cheb_matM_inv_slab_plain(rhs, 0.3, geom=geom, degree=12, dt=DT)
+    return np.int64(mesh.calls["cheb_ghosts"] - before)
+
+
 def particle_load(cfg_doc, root, mesh_n):
     """The binned state that initialising ``cfg_doc`` (with the reference
     RNG) loads on this rank, over ``mesh_n`` ranks."""
@@ -278,6 +305,7 @@ def _rank(rank, init, root, cfg_doc):
         res = ops(geom, mesh, whole=False)
         res.update(fused(geom, mesh, whole=False))
         res["halo_bytes"] = halo_bytes(lambda nz: make_mesh(WORLD, nz))
+        res["cheb_exchanges"] = cheb_exchanges(mesh)
         res.update(ghosted(lambda: make_mesh(WORLD, NZ, "ghosted")))
         res.update({f"load_{k}": v for k, v in particle_load(
             cfg_doc, os.path.join(root, f"load{rank}"), WORLD).items()})

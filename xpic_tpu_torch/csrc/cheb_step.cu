@@ -50,18 +50,26 @@
 // plain twin is checked to 1e-5 relative in float32, 1e-12 in float64).
 //
 // The slab form (xpic_cheb_sweep, xpic_cheb_sweep_f64): a run over a
-// 1-D z mesh of ranks holds a z slab of the field, and a launch cannot
-// wait for another process's plane, so there an apply is one launch a
-// sweep: 12 launches, with the two boundary planes of d exchanged
-// between them by the caller (11 exchanges: the first sweep reads rhs's,
-// the last reads no neighbour).  rhs, d0 and d1 carry one ghost z plane
-// on each side ([3, nz + 2, ny, nx]); x and r are the slab's own
-// [3, nz, ny, nx].  A sweep computes each element from the same values
-// in the same order as the one-launch kernel (the same tap code, the
-// scalar recurrence advanced k times from the shift), so the slab form
-// gives the one-launch kernel's bits on the same global field.  Whether
-// the ghost plane below (zlo) and above (zhi) exists is the caller's:
-// no at a non-periodic global z bound.
+// 1-D z mesh of ranks holds a z slab of t planes, and a launch cannot
+// wait for another process's plane.  Sweep k reads d_k one plane up and
+// down; sweeps 0 .. degree - 2 each move the region that depends on a
+// neighbour's planes one plane inward, and the last only adds x += d.
+// So the caller pads the slab with g ghost planes a side (only where a
+// neighbour rank exists), fills them by one exchange, and one launch
+// then runs g of those sweeps (the last segment also the pointwise last
+// one) on the padded slab [3, t + lo + hi, ny, nx] with
+// z zero-filled at its edges: at a non-periodic global bound that is
+// the whole grid's zero fill, at a cut between ranks the planes the fill
+// spoils (one more a sweep) never reach the own planes.  An apply is e
+// segments, e = ceil((degree - 1) / min(degree - 1, t)) at depth
+// g = ceil((degree - 1) / e): one exchange and one cooperative launch
+// each (rhs before the first, d and r before the others).  At degree 12
+// and t >= 11 that is one exchange and one launch.  A segment is this
+// kernel from sweep k0 for `count` sweeps, with the scalar recurrence
+// advanced k0 times at entry; the whole-grid entry is k0 = 0, count =
+// degree.  Every own-plane element is computed from the same values in
+// the same order as on the whole grid (the same tap code), so the slab
+// form gives the one-launch kernel's bits.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -109,17 +117,6 @@ struct Nbhd {
     off[axis][0] = lo * stride;
     off[axis][1] = q * stride;
     off[axis][2] = hi * stride;
-  }
-  // z on a slab: q is the own plane, the field is padded with one ghost
-  // plane a side (own plane q at padded plane q + 1).
-  __device__ __forceinline__ void set_slab(int q, int n, int zlo, int zhi,
-                                           int stride) {
-    in[2][0] = q > 0 || zlo;
-    in[2][1] = true;
-    in[2][2] = q < n - 1 || zhi;
-    off[2][0] = q * stride;
-    off[2][1] = (q + 1) * stride;
-    off[2][2] = (q + 2) * stride;
   }
   __device__ __forceinline__ bool inside(int ix, int iy, int iz) const {
     return in[0][ix] && in[1][iy] && in[2][iz];
@@ -195,13 +192,14 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
     cheb_apply_kernel(const T* __restrict__ rhs, const T* __restrict__ shift,
                       T* x, T* r, T* d0, T* d1, Grid<T> g, T beta,
-                      T beta_lam, int degree) {
+                      T beta_lam, int k0, int count, int degree) {
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   const int n = g.nx * g.ny * g.nz;
   const int total = 3 * n;
   const int stride = gridDim.x * blockDim.x;
 
-  // Scalar recurrence from the device shift, advanced once an iteration.
+  // Scalar recurrence from the device shift, advanced to sweep k0 at
+  // entry and once an iteration.
   const T a = T(2) + shift[0];
   const T b = a + beta_lam;
   const T theta = T(0.5) * (b + a);
@@ -209,8 +207,10 @@ __global__ void __launch_bounds__(kThreads)
   const T sigma1 = theta / delta;
   const T inv_theta = T(1) / theta;
   T rho = T(1) / sigma1;
+  for (int k = 0; k < k0; ++k) rho = T(1) / (T(2) * sigma1 - rho);
 
-  for (int k = 0; k < degree; ++k) {
+  const int end = k0 + count;
+  for (int k = k0; k < end; ++k) {
     const T rho_new = T(1) / (T(2) * sigma1 - rho);
     const T cd = rho_new * rho;
     const T cr = T(2) * rho_new / delta;
@@ -237,78 +237,20 @@ __global__ void __launch_bounds__(kThreads)
       d_out[tid] = cd * dv + cr * rv;
     }
     rho = rho_new;
-    if (!last) grid.sync();
+    if (k + 1 < end) grid.sync();
   }
 }
 
-// Sweep k of the slab form: rhs, d_in and d_out padded, x and r own.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    cheb_sweep_kernel(const T* __restrict__ rhs, const T* __restrict__ shift,
-                      T* x, T* r, const T* d_in, T* d_out, Grid<T> g,
-                      int zlo, int zhi, T beta, T beta_lam, int k,
-                      int degree) {
-  const int plane = g.nx * g.ny;
-  const int n = plane * g.nz;
-  const int np = plane * (g.nz + 2);
-  const int total = 3 * n;
-
-  const T a = T(2) + shift[0];
-  const T b = a + beta_lam;
-  const T theta = T(0.5) * (b + a);
-  const T delta = T(0.5) * (b - a);
-  const T sigma1 = theta / delta;
-  const T inv_theta = T(1) / theta;
-  T rho = T(1) / sigma1;
-  for (int j = 0; j < k; ++j) rho = T(1) / (T(2) * sigma1 - rho);
-  const T rho_new = T(1) / (T(2) * sigma1 - rho);
-  const T cd = rho_new * rho;
-  const T cr = T(2) * rho_new / delta;
-  const bool first = (k == 0);
-  const bool last = (k == degree - 1);
-  const Field<T> F{d_in, rhs, inv_theta, first, np};
-  const int stride = gridDim.x * blockDim.x;
-  for (int tid = blockIdx.x * blockDim.x + threadIdx.x; tid < total;
-       tid += stride) {
-    const int c = tid / n;
-    const int cell = tid - c * n;
-    const int pidx = c * np + cell + plane;
-    const T dv = first ? rhs[pidx] * inv_theta : d_in[pidx];
-    x[tid] = (first ? T(0) : x[tid]) + dv;
-    if (last) continue;
-    const int row = cell / g.nx;
-    Nbhd N;
-    N.set(0, cell - row * g.nx, g.nx, g.px, 1);
-    N.set(1, row % g.ny, g.ny, g.py, g.nx);
-    N.set_slab(row / g.ny, g.nz, zlo, zhi, plane);
-    const T cc = curlcurl_at(F, N, g, c);
-    const T rv = (first ? rhs[pidx] : r[tid]) - (a * dv + beta * cc);
-    r[tid] = rv;
-    d_out[pidx] = cd * dv + cr * rv;
-  }
-}
-
-template <typename T>
-int launch_sweep(const T* rhs, const T* shift, T* x, T* r, const T* d_in,
-                 T* d_out, int nx, int ny, int nz, int px, int py, int zlo,
-                 int zhi, T ix, T iy, T iz, T beta, T beta_lam, int k,
-                 int degree, void* stream) {
-  if (degree < 1 || k < 0 || k >= degree)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Grid<T> g{nx, ny, nz, px, py, 0, ix, iy, iz};
-  const int blocks = (3 * nx * ny * nz + kThreads - 1) / kThreads;
-  cheb_sweep_kernel<T><<<blocks, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      rhs, shift, x, r, d_in, d_out, g, zlo, zhi, beta, beta_lam, k, degree);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// r, d0 and d1 are scratch fields of rhs's shape; x receives the apply.
+// Sweeps k0 .. k0 + count - 1 of a degree-`degree` apply.  r, d0 and d1
+// are scratch fields of rhs's shape; x receives the apply.  A later
+// segment starts from the x, r and d (d0 for an even k0, else d1) that
+// the earlier ones left.
 template <typename T>
 int launch(const T* rhs, const T* shift, T* x, T* r, T* d0, T* d1, int nx,
            int ny, int nz, int px, int py, int pz, T ix, T iy, T iz, T beta,
-           T beta_lam, int degree, void* stream) {
-  if (degree < 1) return static_cast<int>(cudaErrorInvalidValue);
+           T beta_lam, int k0, int count, int degree, void* stream) {
+  if (degree < 1 || k0 < 0 || count < 1 || k0 + count > degree)
+    return static_cast<int>(cudaErrorInvalidValue);
   // Blocks the card holds at once: per SM times SMs.
   int dev = 0, per_sm = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -322,8 +264,8 @@ int launch(const T* rhs, const T* shift, T* x, T* r, T* d0, T* d1, int nx,
   Grid<T> g{nx, ny, nz, px, py, pz, ix, iy, iz};
   const int work = (3 * nx * ny * nz + kThreads - 1) / kThreads;
   const int blocks = work < resident ? work : resident;
-  void* args[] = {&rhs, &shift, &x, &r, &d0, &d1, &g, &beta, &beta_lam,
-                  &degree};
+  void* args[] = {&rhs, &shift, &x, &r, &d0, &d1,
+                  &g, &beta, &beta_lam, &k0, &count, &degree};
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(cheb_apply_kernel<T>), dim3(blocks),
       dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
@@ -339,7 +281,7 @@ XPIC_API int xpic_cheb_step(const float* rhs, const float* shift, float* x,
                             float iy, float iz, float beta, float beta_lam,
                             int degree, void* stream) {
   return launch(rhs, shift, x, r, d0, d1, nx, ny, nz, px, py, pz, ix, iy, iz,
-                beta, beta_lam, degree, stream);
+                beta, beta_lam, 0, degree, degree, stream);
 }
 
 XPIC_API int xpic_cheb_step_f64(const double* rhs, const double* shift,
@@ -349,34 +291,35 @@ XPIC_API int xpic_cheb_step_f64(const double* rhs, const double* shift,
                                 double beta, double beta_lam, int degree,
                                 void* stream) {
   return launch(rhs, shift, x, r, d0, d1, nx, ny, nz, px, py, pz, ix, iy, iz,
-                beta, beta_lam, degree, stream);
+                beta, beta_lam, 0, degree, degree, stream);
 }
 
 XPIC_API int xpic_cheb_step_f64_info(int* out) {
   return kernel_info(cheb_apply_kernel<double>, kThreads, 0, out);
 }
 
+// One segment of the slab form: every field padded, [3, nz, ny, nx] with
+// nz = t + lo + hi; z zero-filled at the padded edges.
 XPIC_API int xpic_cheb_sweep(const float* rhs, const float* shift, float* x,
-                             float* r, const float* d_in, float* d_out,
-                             int nx, int ny, int nz, int px, int py, int zlo,
-                             int zhi, float ix, float iy, float iz,
-                             float beta, float beta_lam, int k, int degree,
-                             void* stream) {
-  return launch_sweep(rhs, shift, x, r, d_in, d_out, nx, ny, nz, px, py, zlo,
-                      zhi, ix, iy, iz, beta, beta_lam, k, degree, stream);
+                             float* r, float* d0, float* d1, int nx, int ny,
+                             int nz, int px, int py, float ix, float iy,
+                             float iz, float beta, float beta_lam, int k0,
+                             int count, int degree, void* stream) {
+  return launch(rhs, shift, x, r, d0, d1, nx, ny, nz, px, py, 0, ix, iy, iz,
+                beta, beta_lam, k0, count, degree, stream);
 }
 
 XPIC_API int xpic_cheb_sweep_f64(const double* rhs, const double* shift,
-                                 double* x, double* r, const double* d_in,
-                                 double* d_out, int nx, int ny, int nz,
-                                 int px, int py, int zlo, int zhi, double ix,
-                                 double iy, double iz, double beta,
-                                 double beta_lam, int k, int degree,
-                                 void* stream) {
-  return launch_sweep(rhs, shift, x, r, d_in, d_out, nx, ny, nz, px, py, zlo,
-                      zhi, ix, iy, iz, beta, beta_lam, k, degree, stream);
+                                 double* x, double* r, double* d0,
+                                 double* d1, int nx, int ny, int nz, int px,
+                                 int py, double ix, double iy, double iz,
+                                 double beta, double beta_lam, int k0,
+                                 int count, int degree, void* stream) {
+  return launch(rhs, shift, x, r, d0, d1, nx, ny, nz, px, py, 0, ix, iy, iz,
+                beta, beta_lam, k0, count, degree, stream);
 }
 
+// The segment launch runs the one-launch kernel.
 XPIC_API int xpic_cheb_sweep_f64_info(int* out) {
-  return kernel_info(cheb_sweep_kernel<double>, kThreads, 0, out);
+  return kernel_info(cheb_apply_kernel<double>, kThreads, 0, out);
 }

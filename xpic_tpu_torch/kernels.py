@@ -50,11 +50,12 @@ SIGNATURES = {
     # 1/dx, 1/dy, 1/dz, beta, beta*lam_cc, degree, stream
     "cheb_step": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                   _F, _F, _F, _F, _F, _I, _P),
-    # The slab form, one sweep a launch: rhs, shift, x, r, d_in, d_out,
-    # nx, ny, nz (own planes), periodic x/y, ghost plane below/above,
-    # 1/dx, 1/dy, 1/dz, beta, beta*lam_cc, sweep k, degree, stream
-    "cheb_sweep": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                   _F, _F, _F, _F, _F, _I, _I, _P),
+    # The slab form, one segment of sweeps a launch on the ghost-padded
+    # slab: rhs, shift, x, r, d0, d1, nx, ny, nz (padded planes),
+    # periodic x/y, 1/dx, 1/dy, 1/dz, beta, beta*lam_cc, first sweep k0,
+    # sweeps, degree, stream
+    "cheb_sweep": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                   _F, _F, _F, _F, _F, _I, _I, _I, _P),
     # P, out, up, dn, G, AT, A, axis, n_ax, nx, ny, stream
     "rebin_extract": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # P, up, dn, out, G, AT, A, axis, nx, ny, nz, z ghost planes, stream
@@ -73,8 +74,8 @@ SIGNATURES = {
     # The float64 instantiations: the rows above with double scalars.
     "cheb_step_f64": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _D, _D, _D, _D, _D, _I, _P),
-    "cheb_sweep_f64": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       _D, _D, _D, _D, _D, _I, _I, _P),
+    "cheb_sweep_f64": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _D, _D, _D, _D, _D, _I, _I, _I, _P),
     "slot_gather_f64": (_P, _P, _P, _I, _I, _P),
     "segment_fields_f64": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _P),
     "ecsim_fill_f64": (_P, _P, _P, _P, _P, _P, _I, _I, _D, _D, _D, _P),

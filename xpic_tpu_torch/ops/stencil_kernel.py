@@ -15,12 +15,18 @@ field once an iteration, with a grid-wide barrier between iterations and
 the field in L2 (``csrc/cheb_step.cu``), in float32 (``cheb_step``) or
 float64 (``cheb_step_f64``).
 
-On a z slab of a multi-rank run (``geom.mesh``) an apply is one sweep a
-launch (``cheb_sweep``, ``cheb_sweep_f64``: the slab form), with the
-boundary planes of d exchanged with the neighbour ranks between sweeps:
-12 launches and 11 exchanges at degree 12.  Its twin
-(:func:`cheb_matM_inv_slab_plain`) runs the same recurrence on padded
-slabs.  Both give the whole grid's values.
+On a z slab of t planes in a multi-rank run (``geom.mesh``) an apply runs
+on the slab padded with g ghost planes a side (where a neighbour rank
+exists), z zero-filled at the padded edges: sweep k reads d one plane up
+and down, so g exchanged planes carry g sweeps, and the planes the zero
+fill spoils never reach the own planes.  An apply is e segments
+(:func:`slab_schedule`: e = ceil((degree - 1) / min(degree - 1, t)),
+g = ceil((degree - 1) / e)), each one exchange (rhs's planes before the
+first, d's and r's before the others) and one cooperative launch
+(``cheb_sweep``, ``cheb_sweep_f64``: the slab form); at degree 12 and
+t >= 11, one exchange and one launch.  Its twin
+(:func:`cheb_matM_inv_slab_plain`) runs the same schedule.  Both give the
+whole grid's bits on the own planes.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ import dataclasses
 import torch
 
 from .. import kernels
-from ..config import PERIODIC, Geometry
+from ..config import GHOSTED, PERIODIC, Geometry
 from . import stencil
 from ..parallel.mesh import mesh_of
 
@@ -101,31 +107,72 @@ def cheb_matM_inv_plain(rhs, shift, *, geom: Geometry, degree: int,
     return torch.stack(x)
 
 
-def _padded_geom(geom: Geometry) -> Geometry:
-    """The slab with one ghost plane a side, as a grid of its own."""
-    return dataclasses.replace(geom, nz=geom.nz + 2, z0=0, nz_global=0,
-                               mesh=None)
+def slab_schedule(degree: int, t: int):
+    """The slab apply's ghost depth g and its segments ``(k0, count)``:
+    sweeps k0 .. k0 + count - 1 after one exchange each.  The
+    degree - 1 sweeps that read a neighbour plane go in
+    e = ceil((degree - 1) / min(degree - 1, t)) runs of at most g, the
+    last (x += d) with the last run; degree 1 reads none (g = 0)."""
+    need = degree - 1
+    if need < 1:
+        return 0, [(0, degree)]
+    e = -(-need // min(need, t))
+    g = -(-need // e)
+    segs = [(k0, min(g, need - k0)) for k0 in range(0, need, g)]
+    segs[-1] = (segs[-1][0], segs[-1][1] + 1)
+    return g, segs
 
 
-def _fill_ghosts(d, mesh) -> None:
-    """Exchange the boundary planes of the padded slab ``d``
-    [3, nz + 2, ny, nx] into its ghost planes (zeros where there is no
-    neighbour)."""
-    n = d.shape[1] - 2
-    from_dn, from_up = mesh.exchange(d[:, n], d[:, 1], "cheb_ghosts")
-    d[:, 0] = 0.0 if from_dn is None else from_dn
-    d[:, n + 1] = 0.0 if from_up is None else from_up
+def _depths(mesh, g: int):
+    """Ghost planes below and above: g where a neighbour rank exists."""
+    lo = g if mesh.dn is not None else 0
+    hi = g if mesh.up is not None else 0
+    return lo, hi
+
+
+def _padded_geom(geom: Geometry, planes: int) -> Geometry:
+    """The padded slab as a grid of its own, z zero-filled at its edges."""
+    bounds = (geom.bounds[0], geom.bounds[1], GHOSTED)
+    return dataclasses.replace(geom, nz=planes, z0=0, nz_global=0,
+                               mesh=None, bounds=bounds)
+
+
+def _exchange_ghosts(mesh, fields, lo: int, hi: int, g: int) -> None:
+    """One exchange of the padded slabs ``fields`` [3, lo + t + hi, ny,
+    nx]: each one's g own boundary planes to the neighbour ranks, theirs
+    into its ghost planes."""
+    n = fields[0].shape[1] - lo - hi
+    to_up = torch.stack([f[:, lo + n - g:lo + n] for f in fields])
+    to_dn = torch.stack([f[:, lo:lo + g] for f in fields])
+    from_dn, from_up = mesh.exchange(to_up, to_dn, "cheb_ghosts")
+    for i, f in enumerate(fields):
+        if lo:
+            f[:, :lo] = from_dn[i]
+        if hi:
+            f[:, lo + n:] = from_up[i]
+
+
+def _pad(rhs, lo: int, hi: int):
+    """``rhs`` [3, t, ny, nx] as the own planes of a padded slab; its
+    ghost planes are the exchange's to fill."""
+    n = rhs.shape[1]
+    out = rhs.new_empty((3, lo + n + hi) + tuple(rhs.shape[2:]))
+    out[:, lo:lo + n] = rhs
+    return out
 
 
 def cheb_matM_inv_slab_plain(rhs, shift, *, geom: Geometry, degree: int,
                              dt: float):
-    """:func:`cheb_matM_inv_plain` on a z slab: each sweep's curl-curl on
-    d padded with one ghost plane a side (11 exchanges at degree 12: the
-    last sweep reads no neighbour).  The curl+ of a ghost plane beyond a
-    non-periodic global bound is zero, as the whole grid's zero fill."""
+    """:func:`cheb_matM_inv_plain` on a z slab, on the kernel's schedule
+    (:func:`slab_schedule`): the recurrence on the slab padded with g
+    ghost planes a side and z zero-filled at the padded edges, rhs's
+    ghost planes exchanged before the first segment, d's and r's before
+    each later one; the own planes cropped at the end."""
     mesh = mesh_of(geom)
-    pg = _padded_geom(geom)
-    curlp, curlm = _curls(pg)
+    n = geom.nz
+    g, segs = slab_schedule(degree, n)
+    lo, hi = _depths(mesh, g)
+    curlp, curlm = _curls(_padded_geom(geom, lo + n + hi))
     beta, beta_lam = _beta_lam(geom, dt)
     a = 2.0 + _as_shift(shift, rhs)
     b = a + beta_lam
@@ -133,40 +180,37 @@ def cheb_matM_inv_slab_plain(rhs, shift, *, geom: Geometry, degree: int,
     delta = 0.5 * (b - a)
     sigma1 = theta / delta
 
-    n = geom.nz
-    x = [torch.zeros_like(rhs[c]) for c in range(3)]
-    r = [rhs[c] for c in range(3)]
+    rhs_p = _pad(rhs, lo, hi)
+    if g:
+        _exchange_ghosts(mesh, [rhs_p], lo, hi, g)
+    x = torch.zeros_like(rhs_p)
+    r = rhs_p
     inv_theta = 1.0 / theta
-    d = [rhs[c] * inv_theta for c in range(3)]
+    d = rhs_p * inv_theta
     rho = 1.0 / sigma1
-    for k in range(degree):
-        x = [x[c] + d[c] for c in range(3)]
-        if k == degree - 1:
-            break
-        dp = torch.zeros((3, n + 2) + tuple(rhs.shape[2:]), dtype=rhs.dtype,
-                         device=rhs.device)
-        dp[:, 1:n + 1] = torch.stack(d)
-        _fill_ghosts(dp, mesh)
-        cp = curlp(tuple(dp))
-        if mesh.dn is None:
-            cp = tuple(torch.cat([torch.zeros_like(c[:1]), c[1:]])
-                       for c in cp)
-        cc = [c[1:n + 1] for c in curlm(cp)]
-        r = [r[c] - (a * d[c] + beta * cc[c]) for c in range(3)]
-        rho_new = 1.0 / (2.0 * sigma1 - rho)
-        cd = rho_new * rho
-        cr = 2.0 * rho_new / delta
-        d = [cd * d[c] + cr * r[c] for c in range(3)]
-        rho = rho_new
-    return torch.stack(x)
+    for i, (k0, count) in enumerate(segs):
+        if i:
+            _exchange_ghosts(mesh, [d, r], lo, hi, g)
+        for k in range(k0, k0 + count):
+            x = x + d
+            if k == degree - 1:
+                break
+            cc = torch.stack(curlm(curlp(d)))
+            r = r - (a * d + beta * cc)
+            rho_new = 1.0 / (2.0 * sigma1 - rho)
+            cd = rho_new * rho
+            cr = 2.0 * rho_new / delta
+            d = cd * d + cr * r
+            rho = rho_new
+    return x[:, lo:lo + n].contiguous()
 
 
 def cheb_matM_inv_slab(rhs, shift, *, geom: Geometry, degree: int,
                        dt: float):
-    """The slab form of the apply: ``degree`` launches of the
-    ``cheb_sweep`` kernel (``cheb_sweep_f64`` for float64) with the ghost
-    planes exchanged between them, for a CUDA field; the slab twin for a
-    CPU field; raises otherwise."""
+    """The slab form of the apply: per segment of :func:`slab_schedule`,
+    one exchange and one launch of the ``cheb_sweep`` kernel
+    (``cheb_sweep_f64`` for float64) on the ghost-padded slab, for a
+    CUDA field; the slab twin for a CPU field; raises otherwise."""
     if rhs.device.type == "cpu":
         return cheb_matM_inv_slab_plain(rhs, shift, geom=geom,
                                         degree=degree, dt=dt)
@@ -181,28 +225,26 @@ def cheb_matM_inv_slab(rhs, shift, *, geom: Geometry, degree: int,
     if s.numel() != 1:
         raise ValueError("cheb_sweep: shift must be one value")
     mesh = mesh_of(geom)
+    n = geom.nz
+    g, segs = slab_schedule(degree, n)
+    lo, hi = _depths(mesh, g)
     beta, beta_lam = _beta_lam(geom, dt)
     per = [int(b == PERIODIC) for b in geom.bounds]
-    n = geom.nz
-    pad = (3, n + 2, geom.ny, geom.nx)
-    rhs_p = torch.zeros(pad, dtype=rhs.dtype, device=rhs.device)
-    rhs_p[:, 1:n + 1] = rhs
-    _fill_ghosts(rhs_p, mesh)
-    d = [torch.zeros(pad, dtype=rhs.dtype, device=rhs.device)
-         for _ in range(2)]
-    x = torch.empty_like(rhs)
-    r = torch.empty_like(rhs)
-    for k in range(degree):
-        d_in, d_out = d[k & 1], d[1 - (k & 1)]
-        if 0 < k < degree - 1:
-            _fill_ghosts(d_in, mesh)
+    rhs_p = _pad(rhs, lo, hi)
+    if g:
+        _exchange_ghosts(mesh, [rhs_p], lo, hi, g)
+    x, r, d0, d1 = torch.empty((4,) + tuple(rhs_p.shape), dtype=rhs.dtype,
+                               device=rhs.device)
+    for i, (k0, count) in enumerate(segs):
+        if i:
+            _exchange_ghosts(mesh, [(d1 if k0 & 1 else d0), r], lo, hi, g)
         kernels.call(
             name, rhs_p.data_ptr(), s.data_ptr(), x.data_ptr(),
-            r.data_ptr(), d_in.data_ptr(), d_out.data_ptr(),
-            geom.nx, geom.ny, n, per[0], per[1], int(mesh.dn is not None),
-            int(mesh.up is not None), 1.0 / geom.dx, 1.0 / geom.dy,
-            1.0 / geom.dz, beta, beta_lam, k, degree, device=rhs.device)
-    return x
+            r.data_ptr(), d0.data_ptr(), d1.data_ptr(), geom.nx, geom.ny,
+            lo + n + hi, per[0], per[1], 1.0 / geom.dx, 1.0 / geom.dy,
+            1.0 / geom.dz, beta, beta_lam, k0, count, degree,
+            device=rhs.device)
+    return x[:, lo:lo + n].contiguous()
 
 
 def cheb_matM_inv(rhs, shift, *, geom: Geometry, degree: int, dt: float):

@@ -55,10 +55,12 @@ MESH_SECTIONS = {
 }
 
 
-def _reduce_max(geom: Geometry, v: int) -> int:
+def _reduce_max(geom: Geometry, v: int, device) -> int:
+    """The largest ``v`` over the ranks, reduced on ``device`` (the
+    species' data's: NCCL reduces no host tensor)."""
     mesh = mesh_of(geom)
     return v if mesh is None else int(mesh.allreduce_max(
-        torch.tensor([v]))[0])
+        torch.tensor([v], device=device))[0])
 
 
 class Species:
@@ -103,7 +105,8 @@ class Species:
     @property
     def state(self) -> BinnedState:
         if self._binned is None:
-            k = _reduce_max(self.geom, max_per_cell(self._flat, self.geom))
+            k = _reduce_max(self.geom, max_per_cell(self._flat, self.geom),
+                            self._flat.alive.device)
             # Headroom above the observed max load, so that the growth in
             # check_load can act before any drop can happen.
             slots = choose_slots(max(k, 1) + max(4, k // 8))
